@@ -5,14 +5,23 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require a CUDA card; print the nvidia-smi name and power limit;
-2. build: compile both hand kernels (coulomb_gmg_tpu_torch/csrc) with nvcc;
+2. build: compile the four hand kernels (coulomb_gmg_tpu_torch/csrc) with
+   nvcc, one process per source, all started together;
 3. kernel vs plain PyTorch version on the card, at main-path shapes (the
-   8,000-atom cycle-0 density plan and finest level operator), with CUDA
-   event timings;
+   8,000-atom cycle-0 mesh: density plan, finest level operator, RHS and
+   Laplace quadrature points x 8,000 atoms), with CUDA event timings;
 4. main path: the 8,000-atom production run (5 adaptive cycles) through
    ``Simulation``; the published per-cycle cell counts must come out
    exactly, every cycle must reach a true float64 residual of
-   1e-8 * ||b||, and both kernels must have been launched by that run.
+   1e-8 * ||b||, and the tile-density and ELL kernels must have been
+   launched by that run;
+5. the same lattice with the reference's defaults for two flags: the
+   brute-force density (no locality index) and the FE-error postprocess.
+   Cycle 0 must have 512,000 cells, every cycle the true residual of
+   phase 4, every FE error must be finite and in (0, 0.03 sqrt(n_atoms)),
+   the last one must agree with its float64 plain recomputation to rel
+   1e-4, and the dense-density, exact-gradient and ELL kernels (not the
+   tile kernel) must have been launched by that run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 ATOMS_N = 10                       # 8 * 10^3 = 8,000 atoms
 REF_CELLS = [512000, 512560, 523592, 543024, 576428]   # bench.py:65-72
 REPS = 20
+PLAIN_REPS = 3                     # the dense plain versions take seconds
+KERNELS = ("ell_spmv", "tile_density", "dense_density", "exact_gradient")
 
 
 def median_ms(fn, reps=REPS):
@@ -66,15 +77,37 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from coulomb_gmg_tpu_torch import kernels
-    for name in ("ell_spmv", "tile_density"):
-        t0 = time.time()
-        kernels.build(name)
-        ptxas = [ln.strip() for ln in
-                 kernels.BUILD_LOG.get(name, {}).get("ptxas", "").splitlines()
+    t0 = time.time()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for f in [pool.submit(kernels.build, n) for n in KERNELS]:
+            f.result()
+    for name in KERNELS:
+        log = kernels.BUILD_LOG.get(name, {})
+        ptxas = [ln.strip() for ln in log.get("ptxas", "").splitlines()
                  if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: {time.time() - t0:.2f} s; "
+        print(f"[build] {name}: {log.get('seconds', 0.0):.2f} s; "
               + " | ".join(ptxas), flush=True)
+    print(f"[build] all: {time.time() - t0:.2f} s", flush=True)
+
+
+def counters():
+    from coulomb_gmg_tpu_torch.ops.density import dense_density
+    from coulomb_gmg_tpu_torch.ops.ell import ell_mv
+    from coulomb_gmg_tpu_torch.ops.gradient import exact_gradient
+    from coulomb_gmg_tpu_torch.ops.tile_density import tile_density
+    return {"ell_spmv": ell_mv, "tile_density": tile_density,
+            "dense_density": dense_density, "exact_gradient": exact_gradient}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def phase_kernels():
@@ -83,7 +116,8 @@ def phase_kernels():
     from coulomb_gmg_tpu.models.atoms import nacl_lattice
     from coulomb_gmg_tpu.utils.logging import Pcout
     from coulomb_gmg_tpu_torch.driver import Simulation
-    from coulomb_gmg_tpu_torch.ops import ell, tile_density as td
+    from coulomb_gmg_tpu_torch.ops import density as dd, ell, gradient as gr
+    from coulomb_gmg_tpu_torch.ops import tile_density as td
     from coulomb_gmg_tpu_torch.solver.device_gmg import StencilGMG
 
     dev = torch.device("cuda")
@@ -138,11 +172,70 @@ def phase_kernels():
     print(f"[kernel] ell_spmv: K={cols.shape[0]} rows={cols.shape[1]}; max|err|"
           f" f32 {errs[torch.float32]:.3e} f64 {errs[torch.float64]:.3e}; "
           f"kernel {ms_ell:.4f} ms, plain {ms_ell_plain:.4f} ms", flush=True)
+
+    # brute-force density at the cycle-0 RHS points x all 8,000 atoms
+    args, kw = dd.density_operands(f, sim.tab_rhs.points, atoms.positions,
+                                   atoms.charges, cfg.r_c, dev)
+    kw["n_out"] = f.n_cells + 1
+    rb_k = dd.dense_density_cuda(*args, **kw)
+    rb_p = dd.dense_density_plain(*args, **kw)
+    torch.cuda.synchronize()
+    scale = float(rb_p.abs().max())
+    err_dd = float((rb_k - rb_p).abs().max())
+    tail = float((rb_k - rho_k).abs().max())
+    if not err_dd <= 1e-5 * scale:
+        raise AssertionError(f"dense_density: max err {err_dd:.3e} > "
+                             f"1e-5 * {scale:.3e}")
+    if rb_k[f.n_cells:].any():
+        raise AssertionError("dense_density: padding row not zero")
+    if not tail <= 1e-2 * scale:
+        raise AssertionError(f"dense vs tile density: {tail:.3e} > "
+                             f"1e-2 * {scale:.3e}")
+    ms_dd = median_ms(lambda: dd.dense_density_cuda(*args, **kw))
+    ms_dd_plain = median_ms(lambda: dd.dense_density_plain(*args, **kw),
+                            PLAIN_REPS)
+    print(f"[kernel] dense_density: {f.n_cells} cells x {n_q} points x "
+          f"{atoms.n} atoms; max|err| {err_dd:.3e} (max|rho| {scale:.3e}); "
+          f"max|dense - tile| {tail:.3e} (the tail past the cutoff); kernel "
+          f"{ms_dd:.3f} ms, plain {ms_dd_plain:.3f} ms ({PLAIN_REPS} reps)",
+          flush=True)
+
+    # exact gradient at the cycle-0 Laplace (FE-error) points x 8,000 atoms
+    pref = torch.from_numpy(sim.tab_lap.points).to(dev, torch.float32)
+    lo = torch.from_numpy(f.cell_lower()).to(dev, torch.float32)
+    hh = torch.from_numpy(f.cell_h()).to(dev, torch.float32)
+    pts = (lo[:, None, :] + hh[:, None, None] * pref).reshape(-1, 3)
+    A32 = dd.pack_atoms(atoms.positions, atoms.charges, dev)
+    g_k = gr.exact_gradient_cuda(pts, A32, cfg.r_c)
+    g_p = gr.exact_gradient_plain(pts, A32, cfg.r_c)
+    torch.cuda.synchronize()
+    gmax = float(g_p.abs().max())
+    err_gr = float((g_k - g_p).abs().max())
+    sub = torch.from_numpy(np.random.default_rng(1).choice(
+        len(pts), 1 << 16, replace=False)).to(dev)
+    g64 = gr.exact_gradient_plain(pts[sub].double(), A32.double(), cfg.r_c)
+    err64_k = float((g_k[sub].double() - g64).abs().max())
+    err64_p = float((g_p[sub].double() - g64).abs().max())
+    if not (np.isfinite(err_gr) and err_gr <= 1e-4 * gmax):
+        raise AssertionError(f"exact_gradient: max err {err_gr:.3e} > "
+                             f"1e-4 * {gmax:.3e}")
+    ms_gr = median_ms(lambda: gr.exact_gradient_cuda(pts, A32, cfg.r_c))
+    ms_gr_plain = median_ms(
+        lambda: gr.exact_gradient_plain(pts, A32, cfg.r_c), PLAIN_REPS)
+    print(f"[kernel] exact_gradient: {len(pts)} points x {atoms.n} atoms; "
+          f"max|err| {err_gr:.3e} (max|grad| {gmax:.3e}); vs float64 on "
+          f"{len(sub)} points: kernel {err64_k:.3e}, plain f32 "
+          f"{err64_p:.3e}; kernel {ms_gr:.3f} ms, plain {ms_gr_plain:.3f} ms"
+          f" ({PLAIN_REPS} reps)", flush=True)
     return {
         "tile_density": dict(max_abs_err=err_td, ms=ms_td,
                              plain_ms=ms_td_plain),
         "ell_spmv": dict(max_abs_err=errs[torch.float32], ms=ms_ell,
                          plain_ms=ms_ell_plain),
+        "dense_density": dict(max_abs_err=err_dd, ms=ms_dd,
+                              plain_ms=ms_dd_plain),
+        "exact_gradient": dict(max_abs_err=err_gr, ms=ms_gr,
+                               plain_ms=ms_gr_plain),
     }
 
 
@@ -152,19 +245,15 @@ def phase_main_path():
     from coulomb_gmg_tpu.models.atoms import nacl_lattice
     from coulomb_gmg_tpu.utils.logging import Pcout
     from coulomb_gmg_tpu_torch.driver import Simulation
-    from coulomb_gmg_tpu_torch.ops.ell import ell_mv
-    from coulomb_gmg_tpu_torch.ops.tile_density import tile_density
 
     cfg = production_scaling_config(ATOMS_N, dtype="float32")
     sim = Simulation(cfg, atoms=nacl_lattice(ATOMS_N), device="cuda",
                      pcout=Pcout(enabled=False))
-    ell_mv.launches = 0
-    tile_density.launches = 0
+    reset_counts()
     t0 = time.time()
     res = sim.run()
     wall = time.time() - t0
-    launches = {"ell_spmv": ell_mv.launches,
-                "tile_density": tile_density.launches}
+    launches = read_counts()
     for r in res:
         st = " ".join(f"{k.split(',')[0].replace(' ', '_')}={v:.2f}"
                       for k, v in r["stages"].items())
@@ -187,9 +276,74 @@ def phase_main_path():
                                  f"{r['cg_iterations']} outside [1, 20]")
     if not np.isfinite(sim.solution).all():
         raise AssertionError("non-finite solution")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("ell_spmv", "tile_density"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name}: no launch on the main path")
+    return launches
+
+
+def phase_bruteforce_fe():
+    import torch
+    from coulomb_gmg_tpu.config import production_scaling_config
+    from coulomb_gmg_tpu.models.atoms import nacl_lattice
+    from coulomb_gmg_tpu.utils.logging import Pcout
+    from coulomb_gmg_tpu_torch.driver import Simulation
+    from coulomb_gmg_tpu_torch.postprocess.energy import energy_norm_error
+
+    cfg = production_scaling_config(ATOMS_N, dtype="float32",
+                                    flag_rhs_assembly=False,
+                                    flag_postprocess_error=True)
+    atoms = nacl_lattice(ATOMS_N)
+    sim = Simulation(cfg, atoms=atoms, device="cuda",
+                     pcout=Pcout(enabled=False))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = sim.run()
+    wall = time.time() - t0
+    launches = read_counts()
+    for r, ref in zip(res, REF_CELLS):
+        st = " ".join(f"{k.split(',')[0].replace(' ', '_')}={v:.2f}"
+                      for k, v in r["stages"].items())
+        print(f"[brute+fe cycle {r['cycle']}] cells {r['n_cells']} "
+              f"(published, locality cut: {ref}) cg {r['cg_iterations']} "
+              f"{r['cg_passes']} residual {r['residual']:.3e} (|b| "
+              f"{r['l2_rhs']:.6e}) fe_error {r['energy_norm_error']:.9e} "
+              f"s: {st}", flush=True)
+    t1 = time.time()
+    fe64 = energy_norm_error(sim.forest, sim.tab_lap, sim.solution,
+                             atoms.positions, atoms.charges, cfg.r_c, "cuda",
+                             dtype=torch.float64)
+    fe32 = res[-1]["energy_norm_error"]
+    rel = abs(fe32 - fe64) / fe64
+    print(f"[brute+fe] wall {wall:.2f} s; launches {launches}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last "
+          f"FE error {fe32:.9e} vs float64 plain {fe64:.9e} (rel {rel:.2e}, "
+          f"{time.time() - t1:.2f} s)", flush=True)
+    if res[0]["n_cells"] != REF_CELLS[0]:
+        raise AssertionError(f"cycle 0 has {res[0]['n_cells']} cells")
+    bound = 0.03 * atoms.n ** 0.5
+    for r in res:
+        if not r["residual"] <= 1.01e-8 * r["l2_rhs"]:
+            raise AssertionError(f"cycle {r['cycle']}: residual "
+                                 f"{r['residual']:.3e} > 1.01e-8 * |b|")
+        if not 1 <= r["cg_iterations"] <= 20:
+            raise AssertionError(f"cycle {r['cycle']}: CG "
+                                 f"{r['cg_iterations']} outside [1, 20]")
+        fe = r["energy_norm_error"]
+        if not (np.isfinite(fe) and 0.0 < fe < bound):
+            raise AssertionError(f"cycle {r['cycle']}: FE error {fe} not in "
+                                 f"(0, {bound:.3f})")
+    if not rel <= 1e-4:
+        raise AssertionError(f"FE error {fe32:.9e} vs float64 {fe64:.9e}: "
+                             f"rel {rel:.2e} > 1e-4")
+    want = {"dense_density": launches["dense_density"] == 5,
+            "exact_gradient": launches["exact_gradient"] >= 5,
+            "ell_spmv": launches["ell_spmv"] > 0,
+            "tile_density": launches["tile_density"] == 0}
+    bad = [k for k, ok in want.items() if not ok]
+    if bad:
+        raise AssertionError(f"launch counts {launches}: wrong for {bad}")
     return launches
 
 
@@ -198,17 +352,20 @@ def main():
     import torch
     phase_build()
     timing = phase_kernels()
-    launches = phase_main_path()
+    main4 = phase_main_path()
+    main5 = phase_bruteforce_fe()
+    replaces = {"tile_density": "coulomb_gmg_tpu/ops/tile_density.py:179",
+                "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
+                "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
+                "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45"}
+    # launches: the sum over the two main-path runs (phases 4 and 5)
     rec = {"kernels": [
-        {"name": "tile_density", "route": "cuda",
-         "source": "coulomb_gmg_tpu_torch/csrc/tile_density.cu",
-         "replaces": "coulomb_gmg_tpu/ops/tile_density.py:179",
-         "launches": launches["tile_density"], **timing["tile_density"]},
-        {"name": "ell_spmv", "route": "cuda",
-         "source": "coulomb_gmg_tpu_torch/csrc/ell_spmv.cu",
-         "replaces": "coulomb_gmg_tpu/ops/ell.py:117",
-         "launches": launches["ell_spmv"], **timing["ell_spmv"]},
-    ]}
+        {"name": name, "route": "cuda",
+         "source": f"coulomb_gmg_tpu_torch/csrc/{name}.cu",
+         "replaces": replaces[name],
+         "launches": main4[name] + main5[name], **timing[name]}
+        for name in ("tile_density", "ell_spmv", "dense_density",
+                     "exact_gradient")]}
     print(smi)
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

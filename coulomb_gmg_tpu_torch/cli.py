@@ -1,12 +1,14 @@
 """Command-line entry point of the PyTorch port.
 
     python -m coulomb_gmg_tpu_torch.cli --production 10 --device cuda
-    python -m coulomb_gmg_tpu_torch.cli params.prm --device cuda
+    python -m coulomb_gmg_tpu_torch.cli examples/gaussian-charges.prm \
+        --device cuda
 
 ``--production N`` runs the reference's published scaling study
 (config.py:production_scaling_config) on the generated ``8 N^3``-atom NaCl
-lattice.  A ``.prm`` file is parsed as by the JAX package's CLI; settings
-outside the ported slice raise NotImplementedError (see ROADMAP.md).  The
+lattice.  A ``.prm`` file is parsed as by the JAX package's CLI (its
+LAMMPS file name is relative to the working directory); settings outside
+the ported slice raise NotImplementedError (see ROADMAP.md).  The
 device is required: nothing falls back to the CPU.
 """
 

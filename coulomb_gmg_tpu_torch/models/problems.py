@@ -40,6 +40,27 @@ def analytic_solution(points: torch.Tensor, atom_positions: torch.Tensor,
     return torch.sum(vals * charges, dim=-1)
 
 
+def analytic_solution_gradient(points: torch.Tensor,
+                               atom_positions: torch.Tensor,
+                               charges: torch.Tensor,
+                               r_c: float) -> torch.Tensor:
+    """grad phi = sum_i q_i radial(r_i) (x - X_i) / r_i with
+    radial(r) = (2 r e^{-(r/r_c)^2} / (sqrt(pi) r_c) - erf(r/r_c)) / r^2,
+    zero at an atom (r < 1e-14, the removable singularity;
+    include/step_50.h:355-369).  Returns ``(..., dim)``."""
+    inv_const = 1.0 / (SQRT_PI * r_c)
+    diff = points[..., None, :] - atom_positions
+    r = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    near = r < 1e-14
+    safe_r = torch.where(near, torch.ones_like(r), r)
+    rq = safe_r / r_c
+    radial = (2.0 * safe_r * torch.exp(-rq * rq) * inv_const
+              - torch.special.erf(rq)) / (safe_r * safe_r)
+    radial = torch.where(near, torch.zeros_like(radial), radial)
+    unit = diff / safe_r[..., None]
+    return torch.sum((charges * radial)[..., None] * unit, dim=-2)
+
+
 def nonzero_dbc(points: torch.Tensor, x0, dipole, quadrupole) -> torch.Tensor:
     """Multipole far-field boundary values:
     p0.(x-x0)/|x-x0|^3 + 0.5 (x-x0)^T Q0 (x-x0) / |x-x0|^5

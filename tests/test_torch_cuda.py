@@ -14,7 +14,8 @@ from coulomb_gmg_tpu.models.atoms import nacl_lattice
 from coulomb_gmg_tpu.ops.q1 import element_tables
 from coulomb_gmg_tpu.utils.logging import Pcout
 from coulomb_gmg_tpu_torch.driver import Simulation
-from coulomb_gmg_tpu_torch.ops import ell, stencil, tile_density as td
+from coulomb_gmg_tpu_torch.ops import density as dd, ell, gradient as gr
+from coulomb_gmg_tpu_torch.ops import stencil, tile_density as td
 from torch_parity import CUT, R_C, adaptive_forest, tile_setup
 
 torch.set_num_threads(2)
@@ -62,6 +63,36 @@ def test_tile_density_kernel_matches_plain(card, refine_seed):
     assert float((rk - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
 
 
+@pytest.mark.parametrize("refine_seed", [None, 2])
+def test_dense_density_kernel_matches_plain(card, refine_seed):
+    f, atoms, tab = tile_setup(2, 2, refine_seed)
+    args, kw = dd.density_operands(f, tab.points, atoms.positions,
+                                   atoms.charges, R_C, card)
+    before = dd.dense_density.launches
+    rk = dd.dense_density(*args, n_out=f.n_cells + 1, **kw)
+    assert dd.dense_density.launches == before + 1
+    rp = dd.dense_density_plain(*args, n_out=f.n_cells + 1, **kw)
+    assert not rk[f.n_cells:].any()
+    assert float((rk - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
+
+
+def test_exact_gradient_kernel_matches_plain(card):
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0.0, 4.0, (1000, 3))
+    q = rng.choice([-1.0, 1.0], 1000)
+    pts = np.vstack([rng.uniform(-1.0, 5.0, (20000, 3)), pos[:3]])
+    atoms = dd.pack_atoms(pos, q, card)
+    p32 = torch.from_numpy(pts.astype(np.float32)).to(card)
+    before = gr.exact_gradient.launches
+    gk = gr.exact_gradient(p32, atoms, R_C)
+    assert gr.exact_gradient.launches == before + 1
+    gp = gr.exact_gradient_plain(p32, atoms, R_C)
+    assert torch.isfinite(gk).all()
+    assert float((gk - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
+    with pytest.raises(TypeError):          # float64: the kernel is f32
+        gr.exact_gradient(p32.double(), atoms.double(), R_C)
+
+
 def test_slice_on_card_8_atoms(card):
     cfg = production_scaling_config(1, dtype="float32")
     sim = Simulation(cfg, atoms=nacl_lattice(1), device=card,
@@ -72,3 +103,21 @@ def test_slice_on_card_8_atoms(card):
                                            99464]
     assert all(r["residual"] <= 1.01e-8 * r["l2_rhs"] for r in res)
     assert ell.ell_mv.launches > 0 and td.tile_density.launches == 5
+
+
+def test_bruteforce_fe_on_card_8_atoms(card):
+    cfg = production_scaling_config(1, dtype="float32",
+                                    flag_rhs_assembly=False,
+                                    flag_postprocess_error=True)
+    sim = Simulation(cfg, atoms=nacl_lattice(1), device=card,
+                     pcout=Pcout(enabled=False))
+    dd.dense_density.launches = gr.exact_gradient.launches = 0
+    res = sim.run()
+    assert [r["n_cells"] for r in res] == [85184, 85744, 87648, 91344,
+                                           99464]
+    fe = [0.301533043384552, 0.2565288841724396, 0.1937119960784912,
+          0.1580086201429367, 0.1199013963341713]   # tests/test_torch_driver
+    assert all(abs(r["energy_norm_error"] / e - 1) < 1e-4
+               for r, e in zip(res, fe))
+    assert dd.dense_density.launches == 5
+    assert gr.exact_gradient.launches >= 5

@@ -44,7 +44,7 @@ def test_port_and_smoke_script_never_import_jax():
 
 @pytest.mark.parametrize("override", [
     dict(dtype="float64"), dict(degree=2), dict(n_devices=2),
-    dict(flag_postprocess_error=True), dict(device_operators="off"),
+    dict(flag_compute_quadrupole=True), dict(device_operators="off"),
     dict(problem="Step16"), dict(write_vtu=True)])
 def test_out_of_slice_configs_raise(override):
     cfg = production_scaling_config(1, dtype="float32").replace(**override)

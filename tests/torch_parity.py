@@ -8,6 +8,8 @@ wrapper runs its plain PyTorch version).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -18,6 +20,7 @@ from coulomb_gmg_tpu.ops.q1 import element_tables
 
 torch.set_num_threads(2)          # tier-1 runs several pytest workers
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R_C = 0.5
 CUT = 3.5 * R_C
 
