@@ -8,8 +8,11 @@ an explicit device, and carries the four Pallas kernels of the repository
 as hand-written CUDA C++ for ``sm_90a`` (``csrc/``): the tile density, the
 ELL SpMV, the brute-force density and the exact gradient of the FE-error
 postprocess.  Mesh, DoF and constraint
-topology comes from the framework-neutral host modules of
-``coulomb_gmg_tpu``; nothing here imports jax.
+topology is host numpy in the package's own modules (``mesh/``, ``fem/``,
+``adapt/transfer.py``, ``ops/q1.py``, ``ops/neighbors.py``, ``utils/``),
+copies of the JAX package's framework-neutral ones, and the native
+topology engine (``csrc/forest_engine.cpp``) builds into ``build/native/``
+at first use.  Nothing here imports jax or ``coulomb_gmg_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -15,8 +15,8 @@ from typing import List, Tuple
 
 import numpy as np
 
-from coulomb_gmg_tpu.mesh.forest import Forest, KeyIndex, corner_offsets
-from coulomb_gmg_tpu.ops.q1 import face_tables, gauss_rule, _basis_at
+from coulomb_gmg_tpu_torch.mesh.forest import Forest, KeyIndex, corner_offsets
+from coulomb_gmg_tpu_torch.ops.q1 import face_tables, gauss_rule, _basis_at
 
 
 @dataclass
@@ -361,7 +361,7 @@ def estimate(forest: Forest, cell2dof: np.ndarray, u, rho_q,
         # axis-aligned boxes, nonzero for higher degree
         temp = 4.0 * np.pi * np.asarray(rho_q, np.float64)
         if degree > 1:
-            from coulomb_gmg_tpu.ops.q1 import lap_basis_at
+            from coulomb_gmg_tpu_torch.ops.q1 import lap_basis_at
             lap = lap_basis_at(dim, degree, np.asarray(rhs_points_ref))
             temp = temp + (ucell @ lap.T) / (h ** 2)[:, None]
         vol = (temp ** 2) @ np.asarray(rhs_weights)

@@ -9,7 +9,8 @@
 lattice.  A ``.prm`` file is parsed as by the JAX package's CLI (its
 LAMMPS file name is relative to the working directory); settings outside
 the ported slice raise NotImplementedError (see ROADMAP.md).  The
-device is required: nothing falls back to the CPU.
+device defaults to the card and raises without one; ``--device cpu`` runs
+the kernels' plain versions.  Nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -25,16 +26,16 @@ def main(argv=None):
     ap.add_argument("prm", nargs="?", help="deal.II-style .prm parameter file")
     ap.add_argument("--production", type=int, metavar="N",
                     help="the published scaling study on 8*N^3 NaCl atoms")
-    ap.add_argument("--device", required=True,
-                    help="torch device, e.g. cuda, cuda:0 or cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device, e.g. cuda (default), cuda:0 or cpu")
     ap.add_argument("--cycles", type=int, default=None,
                     help="override number of adaptive cycles")
     args = ap.parse_args(argv)
     if (args.prm is None) == (args.production is None):
         ap.error("give either a .prm file or --production N")
 
-    from coulomb_gmg_tpu.config import load_prm, production_scaling_config
-    from coulomb_gmg_tpu.models.atoms import nacl_lattice
+    from coulomb_gmg_tpu_torch.config import load_prm, production_scaling_config
+    from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
     from coulomb_gmg_tpu_torch.driver import Simulation
 
     overrides = {"dtype": "float32"}

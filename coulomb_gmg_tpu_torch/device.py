@@ -1,10 +1,10 @@
 """Device and precision policy of the PyTorch port.
 
-Counterpart of coulomb_gmg_tpu/utils/platform.py.  The port never picks a
-device on its own: every entry point takes an explicit ``device``, and a
-CUDA device that is not there is an error, not a silent fall back to the
-CPU.  Float32 work runs with TF32 off, the Hopper analogue of the TPU's
-bf16 matmul default that cost 4.6e-3 of true residual in the JAX solve.
+Counterpart of coulomb_gmg_tpu/utils/platform.py.  The entry points run on
+the card unless the caller asks for the CPU, and a CUDA device that is not
+there is an error, not a silent fall back to the CPU.  Float32 work runs
+with TF32 off, the Hopper analogue of the TPU's bf16 matmul default that
+cost 4.6e-3 of true residual in the JAX solve.
 """
 
 from __future__ import annotations

@@ -22,9 +22,10 @@ Exact boundary values).  Per adaptive cycle:
    energy norm with the exact-gradient kernel (postprocess/energy.py);
 7. refinement and solution transfer (mesh/forest.py, adapt/transfer.py).
 
-Mesh, DoF and constraint topology stays on the host, in the
-framework-neutral modules of coulomb_gmg_tpu.  A configuration outside this
-slice raises NotImplementedError; ROADMAP.md lists what is still to port.
+Mesh, DoF and constraint topology stays on the host, in the package's
+numpy modules (mesh/, fem/, adapt/transfer.py).  A configuration outside
+this slice raises NotImplementedError; ROADMAP.md lists what is still to
+port.
 """
 
 from __future__ import annotations
@@ -36,18 +37,19 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu.adapt.transfer import old_cell_of_new, transfer_solution
-from coulomb_gmg_tpu.config import Config
-from coulomb_gmg_tpu.fem.constraints import (build_constraints, distribute,
-                                             set_zero)
-from coulomb_gmg_tpu.io.lammps import AtomData, read_lammps_file
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.ops.q1 import element_tables
-from coulomb_gmg_tpu.utils.logging import Pcout, sci10, fix10
-from coulomb_gmg_tpu.utils.timer import TimerOutput
 from coulomb_gmg_tpu_torch.adapt.estimator import (
     build_face_plan, update_face_plan, estimate, mark_cells)
+from coulomb_gmg_tpu_torch.adapt.transfer import (old_cell_of_new,
+                                                  transfer_solution)
+from coulomb_gmg_tpu_torch.config import Config
 from coulomb_gmg_tpu_torch.device import resolve
+from coulomb_gmg_tpu_torch.fem.constraints import (build_constraints,
+                                                   distribute, set_zero)
+from coulomb_gmg_tpu_torch.io.lammps import AtomData, read_lammps_file
+from coulomb_gmg_tpu_torch.mesh.forest import Forest
+from coulomb_gmg_tpu_torch.ops.q1 import element_tables
+from coulomb_gmg_tpu_torch.utils.logging import Pcout, sci10, fix10
+from coulomb_gmg_tpu_torch.utils.timer import TimerOutput
 from coulomb_gmg_tpu_torch.models import problems as P
 from coulomb_gmg_tpu_torch.ops.density import density_bruteforce
 from coulomb_gmg_tpu_torch.ops.tile_density import density_locality_tiles
@@ -84,10 +86,10 @@ class Simulation:
     """One adaptive simulation on one device (the reference's
     LaplaceProblem, production configuration).
 
-    ``device`` is required: "cuda" runs the hand kernels on the card,
-    "cpu" runs their plain PyTorch versions (tests)."""
+    ``device`` defaults to "cuda", the hand kernels on the card, and
+    raises without one; "cpu" runs their plain PyTorch versions (tests)."""
 
-    def __init__(self, cfg: Config, atoms: AtomData = None, device=None,
+    def __init__(self, cfg: Config, atoms: AtomData = None, device="cuda",
                  pcout=None):
         check_slice(cfg)
         self.device = resolve(device)
@@ -311,7 +313,7 @@ class Simulation:
         pc(f"Dimension:\t{cfg.dim}")
         start_cycle = 0
         if cfg.resume_from:
-            from coulomb_gmg_tpu.utils.checkpoint import load_checkpoint
+            from coulomb_gmg_tpu_torch.utils.checkpoint import load_checkpoint
             (self.forest, self.solution, self.flags, _, _,
              done) = load_checkpoint(cfg.resume_from)
             start_cycle = done + 1
@@ -352,7 +354,7 @@ class Simulation:
             cyc["stages"] = dict(self._stages)
             self.results.append(cyc)
             if cfg.checkpoint_dir:
-                from coulomb_gmg_tpu.utils.checkpoint import save_checkpoint
+                from coulomb_gmg_tpu_torch.utils.checkpoint import save_checkpoint
                 save_checkpoint(os.path.join(
                     cfg.checkpoint_dir, f"ckpt_cycle{cycle:03d}.npz"),
                     self, cycle)

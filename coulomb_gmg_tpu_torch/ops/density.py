@@ -22,7 +22,7 @@ import ctypes
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu.mesh.forest import Forest
+from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch import kernels
 
 _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong,

@@ -9,7 +9,10 @@ rows ``(x, y, z, q)`` (ops/density.py:pack_atoms),
 
 zero where ``r^2 < 1e-14``.  :func:`exact_gradient` is the hand kernel in
 ``csrc/exact_gradient.cu`` on the card and :func:`exact_gradient_plain` for
-CPU tensors.  Both use direct differences ``x - X_a``; the TPU's
+CPU tensors.  The kernel gives a pair with ``r / r_c >= FAR`` the far path
+``W_a = -q_a / r^3``: in float32 the bracket is exactly -1 there
+(tests/test_torch_gradient.py sweeps it), so both paths give the same
+bits.  Both use direct differences ``x - X_a``; the TPU's
 ``|x|^2 + |X|^2 - 2 x.X`` form and its coordinate centring are not carried
 over.
 """
@@ -23,9 +26,10 @@ import torch
 
 from coulomb_gmg_tpu_torch import kernels
 
+FAR = 4.5                 # r / r_c from which the bracket is exactly -1
 _SIG = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_float, ctypes.c_float,
-                                ctypes.c_void_p]
+                                ctypes.c_float, ctypes.c_void_p]
 # (point, atom) pairs per chunk of the plain version: small on the CPU
 # (tests), large on the card (its float64 run is the FE-error oracle)
 _PAIRS = {"cpu": 1 << 22, "cuda": 1 << 25}
@@ -54,6 +58,12 @@ def exact_gradient_plain(points: torch.Tensor, atoms: torch.Tensor,
     return out
 
 
+def far_r2(r_c: float) -> float:
+    """The kernel's far test ``r^2 >= far_r2``: ``(FAR r_c)^2`` raised by
+    1e-4 so that the kernel's computed ``r / r_c`` is ``>= FAR`` there."""
+    return (FAR * r_c) ** 2 * (1.0 + 1e-4)
+
+
 def exact_gradient_cuda(points: torch.Tensor, atoms: torch.Tensor,
                         r_c: float) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no fall back)."""
@@ -75,7 +85,7 @@ def exact_gradient_cuda(points: torch.Tensor, atoms: torch.Tensor,
     err = lib.exact_gradient_f32(
         points.data_ptr(), atoms.data_ptr(), out.data_ptr(), points.shape[0],
         atoms.shape[0], 1.0 / r_c, 2.0 / (math.sqrt(math.pi) * r_c),
-        torch.cuda.current_stream(points.device).cuda_stream)
+        far_r2(r_c), torch.cuda.current_stream(points.device).cuda_stream)
     kernels.check(err, "exact_gradient")
     exact_gradient.launches += 1
     return out

@@ -22,8 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu.mesh.forest import Forest, corner_offsets
-from coulomb_gmg_tpu.mesh.dofs import LevelDofs
+from coulomb_gmg_tpu_torch.mesh.forest import Forest, corner_offsets
+from coulomb_gmg_tpu_torch.mesh.dofs import LevelDofs
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 
 

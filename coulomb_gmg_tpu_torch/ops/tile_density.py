@@ -7,7 +7,9 @@ tiles that can hold atoms within the cutoff of its cells' level-0 ancestor
 boxes.  The TPU plan's packed 12-bit work list, its SMEM chunking and its
 bucket padding exist only for the TPU's scalar memory and compiler; here the
 work list is a CSR: ``blk_ptr[b] .. blk_ptr[b + 1]`` indexes the atom tiles
-``atile`` of block ``b``.
+``atile`` of block ``b``.  Tiles hold ``A_TILE`` = 64 atoms, not the TPU's
+512, so that few atoms outside every cell's cutoff are staged: the kernel
+tests membership once per (cell, atom) of a tile and works only on members.
 
 :func:`tile_density` evaluates the density on it: the hand kernel in
 ``csrc/tile_density.cu`` on the card, :func:`tile_density_plain` for CPU
@@ -25,11 +27,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.ops.neighbors import build_atom_buckets
+from coulomb_gmg_tpu_torch.mesh.forest import Forest
+from coulomb_gmg_tpu_torch.ops.neighbors import build_atom_buckets
 from coulomb_gmg_tpu_torch import kernels
 
 P_TILE = 512              # points per cell block (cpb = P_TILE // n_q cells)
+A_TILE = 64               # atoms per tile; the kernel takes only this width
 PAD_CELL = 1 << 20        # integer coordinate that puts a pad cell far away
 PAD_ATOM = 1.0e6          # coordinate of pad atoms (charge 0)
 
@@ -49,7 +52,7 @@ class TilePlan:
 
 
 def build_tile_plan(forest: Forest, n_q: int, positions: np.ndarray,
-                    charges: np.ndarray, cutoff: float, a_tile: int = 512,
+                    charges: np.ndarray, cutoff: float, a_tile: int = A_TILE,
                     n_rows: Optional[int] = None) -> TilePlan:
     """The work plan of coulomb_gmg_tpu/ops/tile_density.py:build_tile_plan
     as a CSR over cell blocks.  ``n_rows`` (>= n_cells) is the number of
@@ -192,6 +195,29 @@ def tile_density_plain(blk_ptr, atile, pts, anc, atoms, *, n_q: int,
     return (acc.reshape(-1)[: n_out * n_q] * scale).reshape(n_out, n_q)
 
 
+def member_counts(blk_ptr, atile, anc, atoms, *, cpb: int, a_tile: int,
+                  cut2: float, h0: float) -> torch.Tensor:
+    """Member atoms of every plan cell, ``(nb * cpb,)`` int64: the atoms of
+    its block's tiles that pass the membership test (the float32 arithmetic
+    of the kernel).  A cell's point needs ``n_q`` times as many terms.
+    Plain PyTorch, for tests and work counts."""
+    dev = anc.device
+    nb = blk_ptr.numel() - 1
+    counts = (blk_ptr[1:] - blk_ptr[:-1]).long()
+    blk_of = torch.repeat_interleave(torch.arange(nb, device=dev), counts)
+    L = anc.reshape(3, nb, cpb)
+    A = atoms[:3].reshape(3, -1, a_tile)
+    out = torch.zeros(nb, cpb, dtype=torch.int64, device=dev)
+    step = max(1, (1 << 22) // (cpb * a_tile))
+    for s in range(0, blk_of.numel(), step):
+        b = blk_of[s:s + step]
+        lo = A[:, atile[s:s + step].long(), None, :] - L[:, b, :, None]
+        hi = lo - h0
+        m = torch.minimum(lo * lo, hi * hi)
+        out.index_add_(0, b, ((m[0] + m[1] + m[2]) < cut2).sum(-1))
+    return out.reshape(-1)
+
+
 _SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
         + [ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_float] * 4
         + [ctypes.c_void_p])
@@ -200,7 +226,9 @@ _SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
 def tile_density_cuda(blk_ptr, atile, pts, anc, atoms, *, n_q: int,
                       cpb: int, a_tile: int, n_out: int, inv_rc2: float,
                       cut2: float, h0: float, scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no fall back)."""
+    """Launch the CUDA kernel on the current stream (no fall back).  It
+    takes plans of ``A_TILE``-atom tiles only; the plain version takes any
+    width."""
     nb = blk_ptr.numel() - 1
     ops = (blk_ptr, atile, pts, anc, atoms)
     if not all(t.is_cuda and t.is_contiguous() for t in ops):
@@ -210,7 +238,8 @@ def tile_density_cuda(blk_ptr, atile, pts, anc, atoms, *, n_q: int,
         raise TypeError("tile_density_cuda: blk_ptr/atile must be int32")
     if not all(t.dtype == torch.float32 for t in (pts, anc, atoms)):
         raise TypeError("tile_density_cuda: pts/anc/atoms must be float32")
-    if (cpb * n_q > 512 or pts.shape != (3, nb * cpb * n_q)
+    if (cpb * n_q > P_TILE or a_tile != A_TILE
+            or pts.shape != (3, nb * cpb * n_q)
             or anc.shape != (3, nb * cpb) or atoms.shape[0] != 4
             or atoms.shape[1] % a_tile or n_out > nb * cpb):
         raise ValueError("tile_density_cuda: inconsistent plan shapes")
@@ -261,7 +290,7 @@ def density_locality_tiles(forest: Forest, points_ref: np.ndarray,
                            positions: np.ndarray, charges: np.ndarray,
                            r_c: float, cutoff: float, device,
                            c_pad: Optional[int] = None,
-                           a_tile: int = 512) -> torch.Tensor:
+                           a_tile: int = A_TILE) -> torch.Tensor:
     """rho~ per (cell, reference quadrature point) with the 4*pi
     normalization (src/step-50.cc:553-560), as a ``(c_pad, n_q)`` float32
     tensor on ``device``; rows past ``n_cells`` are exactly zero.

@@ -21,8 +21,8 @@ import numpy as np
 import torch
 from scipy.special import erfc
 
-from coulomb_gmg_tpu.mesh.forest import Forest, KeyIndex
-from coulomb_gmg_tpu.ops.q1 import ElementTables, basis_at
+from coulomb_gmg_tpu_torch.mesh.forest import Forest, KeyIndex
+from coulomb_gmg_tpu_torch.ops.q1 import ElementTables, basis_at
 from coulomb_gmg_tpu_torch.ops.density import pack_atoms
 from coulomb_gmg_tpu_torch.ops.gradient import (exact_gradient,
                                                 exact_gradient_plain)

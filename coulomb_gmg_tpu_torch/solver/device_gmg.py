@@ -24,9 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.mesh.dofs import DofInfo, Constraints
-from coulomb_gmg_tpu.ops.q1 import element_tables
+from coulomb_gmg_tpu_torch.mesh.forest import Forest
+from coulomb_gmg_tpu_torch.mesh.dofs import DofInfo, Constraints
+from coulomb_gmg_tpu_torch.ops.q1 import element_tables
 from coulomb_gmg_tpu_torch.ops.dst import DSTPoisson
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 from coulomb_gmg_tpu_torch.ops.stencil import (

@@ -1,6 +1,7 @@
 """The hand CUDA kernels of the PyTorch port against their plain PyTorch
 versions, on the card.  Every test here needs a CUDA card and skips without
-one; the file imports no jax, so it runs on a machine without it:
+one; the file imports neither jax nor the JAX package, so it runs on a
+machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -9,10 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from coulomb_gmg_tpu.config import production_scaling_config
-from coulomb_gmg_tpu.models.atoms import nacl_lattice
-from coulomb_gmg_tpu.ops.q1 import element_tables
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg_tpu_torch.config import production_scaling_config
+from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+from coulomb_gmg_tpu_torch.ops.q1 import element_tables
+from coulomb_gmg_tpu_torch.utils.logging import Pcout
 from coulomb_gmg_tpu_torch.driver import Simulation
 from coulomb_gmg_tpu_torch.ops import density as dd, ell, gradient as gr
 from coulomb_gmg_tpu_torch.ops import stencil, tile_density as td
@@ -61,6 +62,38 @@ def test_tile_density_kernel_matches_plain(card, refine_seed):
     rp = td.tile_density_plain(*args, n_out=f.n_cells + 1, **kw)
     assert torch.equal(rk != 0, rp != 0)
     assert float((rk - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
+
+
+@pytest.mark.parametrize("refine_seed", [None, 2])
+def test_tile_density_kernel_takes_only_its_tile(card, refine_seed):
+    """The kernel refuses a plan of 512-atom tiles (the TPU's width), whose
+    plain version gives the 64-atom kernel's density."""
+    f, atoms, tab = tile_setup(2, 2, refine_seed)
+    outs = []
+    for a_tile in (td.A_TILE, 512):
+        plan = td.build_tile_plan(f, len(tab.points), atoms.positions,
+                                  atoms.charges, CUT, a_tile=a_tile,
+                                  n_rows=f.n_cells + 1)
+        args, kw = td.plan_operands(f, tab.points, plan, R_C, CUT, card)
+        kw["n_out"] = f.n_cells + 1
+        if a_tile == td.A_TILE:
+            outs.append(td.tile_density(*args, **kw))
+        else:
+            with pytest.raises(ValueError):
+                td.tile_density_cuda(*args, **kw)
+            outs.append(td.tile_density_plain(*args, **kw))
+    assert torch.equal(outs[0] != 0, outs[1] != 0)
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-5 * float(
+        outs[1].abs().max())
+
+
+def test_erf_is_one_past_the_far_threshold_on_card(card):
+    """The far path of the gradient kernel assumes the card's erff is
+    exactly 1 from FAR on; torch's CUDA erf is that erff."""
+    lo, hi = (int(np.float32(v).view(np.int32)) for v in (gr.FAR, 1e4))
+    rq = torch.arange(lo, hi + 1, dtype=torch.int32,
+                      device=card).view(torch.float32)
+    assert bool((torch.special.erf(rq) == 1).all())
 
 
 @pytest.mark.parametrize("refine_seed", [None, 2])

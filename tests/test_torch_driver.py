@@ -31,9 +31,9 @@ import numpy as np
 import pytest
 import torch
 
-from coulomb_gmg_tpu.config import production_scaling_config
-from coulomb_gmg_tpu.models.atoms import nacl_lattice
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg_tpu_torch.config import production_scaling_config
+from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+from coulomb_gmg_tpu_torch.utils.logging import Pcout
 from coulomb_gmg_tpu_torch.driver import Simulation
 from coulomb_gmg_tpu_torch.ops.density import dense_density
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
@@ -131,6 +131,7 @@ def test_example_prm_through_cli_matches_jax(monkeypatch, capsys):
     import coulomb_gmg_tpu.solver.device_gmg as jdg
     from coulomb_gmg_tpu.config import load_prm
     from coulomb_gmg_tpu.driver import Simulation as JaxSimulation
+    from coulomb_gmg_tpu.utils.logging import Pcout as JaxPcout
     from coulomb_gmg_tpu_torch import cli
 
     monkeypatch.chdir(ROOT)          # the file names its atoms relatively
@@ -152,7 +153,7 @@ def test_example_prm_through_cli_matches_jax(monkeypatch, capsys):
     monkeypatch.setattr(jdg.StencilGMG, "solve", solve_rec)
     jcfg = load_prm(prm, dtype="float32", solver_backend="tpu_cg",
                     device_operators="on", n_adaptive_cycles=2)
-    jres = JaxSimulation(jcfg, pcout=Pcout(enabled=False)).run()
+    jres = JaxSimulation(jcfg, pcout=JaxPcout(enabled=False)).run()
     assert len(jax_first) == 2
 
     runs = []
@@ -177,14 +178,17 @@ def test_example_prm_through_cli_matches_jax(monkeypatch, capsys):
 
 
 def test_resume_from_jax_checkpoint(tmp_path):
+    from coulomb_gmg_tpu import config as jconfig
     from coulomb_gmg_tpu.driver import Simulation as JaxSimulation
-    jcfg = production_scaling_config(1, dtype="float32",
-                                     solver_backend="tpu_cg",
-                                     device_operators="on",
-                                     n_adaptive_cycles=1,
-                                     checkpoint_dir=str(tmp_path))
-    JaxSimulation(jcfg, atoms=nacl_lattice(1),
-                  pcout=Pcout(enabled=False)).run()
+    from coulomb_gmg_tpu.models.atoms import nacl_lattice as jax_lattice
+    from coulomb_gmg_tpu.utils.logging import Pcout as JaxPcout
+    jcfg = jconfig.production_scaling_config(1, dtype="float32",
+                                             solver_backend="tpu_cg",
+                                             device_operators="on",
+                                             n_adaptive_cycles=1,
+                                             checkpoint_dir=str(tmp_path))
+    JaxSimulation(jcfg, atoms=jax_lattice(1),
+                  pcout=JaxPcout(enabled=False)).run()
     ckpt = tmp_path / "ckpt_cycle000.npz"
     assert ckpt.exists()
     cfg = production_scaling_config(1, dtype="float32", n_adaptive_cycles=2,

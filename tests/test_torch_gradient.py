@@ -3,7 +3,8 @@ version on the CPU) against the JAX package: float64 against
 ``analytic_solution_gradient`` (rel 1e-12); float32 against the Pallas
 kernel ``exact_gradient_pallas(..., interpret=True)`` at the tolerances of
 tests/test_kernels.py:196 (rtol 2e-3, atol 2e-4, which the TPU kernel's
-Abramowitz-Stegun erf and cross-term r^2 need); the zero at an atom."""
+Abramowitz-Stegun erf and cross-term r^2 need); the zero at an atom; the
+float32 sweep behind the kernel's far path."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -75,6 +76,30 @@ def test_zero_at_atom_position():
             t64(pts).to(dt), pack_atoms(pos[1:], q[1:], "cpu", dt), 0.4)
         assert torch.equal(g, only_other)
         np.testing.assert_allclose(g.numpy(), ref, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("r_c", [R_C, 0.3])
+def test_far_bracket_is_exactly_minus_one(r_c):
+    """Every float32 ``rq = r / r_c`` in ``[FAR, 1e4]`` gives the bracket
+    ``c2 r exp(-rq^2) - erf(rq)`` exactly -1, whether the product and the
+    subtraction round separately or as one FMA; past 1e4 the exponential
+    is 0.  That is what lets the kernel's far path use ``-q / r^3``."""
+    c2 = 2.0 / (np.sqrt(np.pi) * r_c)
+    lo, hi = (int(np.float32(v).view(np.int32)) for v in (gr.FAR, 1e4))
+    step = 1 << 22
+    for s in range(lo, hi + 1, step):
+        rq = torch.arange(s, min(s + step, hi + 1),
+                          dtype=torch.int32).view(torch.float32)
+        c2r = c2 * (rq * r_c)
+        e = torch.exp(-rq * rq)
+        erf = torch.special.erf(rq)
+        assert bool((erf == 1).all())
+        assert bool((c2r * e - erf == -1).all())
+        fused = c2r.double() * e.double() - erf.double()
+        assert bool((fused.float() == -1).all())
+    assert float(torch.exp(-torch.tensor(1e4, dtype=torch.float32) ** 2)) == 0
+    r = np.float32(gr.FAR * r_c)       # the test the kernel makes
+    assert np.float32(gr.far_r2(r_c)) > r * r
 
 
 def test_cpu_dispatch_is_plain_and_cuda_path_never_falls_back():

@@ -1,6 +1,7 @@
-"""Boundaries of the PyTorch port: it never imports jax, it refuses
-configurations outside the ported slice, and it never picks a device (or
-falls back to the CPU) on its own."""
+"""Boundaries of the PyTorch port: it imports neither jax nor the JAX
+package, it refuses configurations outside the ported slice, and its entry
+points run on the card unless the CPU is asked for (never falling back to
+it)."""
 
 import os
 import subprocess
@@ -9,8 +10,9 @@ import sys
 import pytest
 import torch
 
-from coulomb_gmg_tpu.config import golden_gaussian_config, production_scaling_config
-from coulomb_gmg_tpu.models.atoms import nacl_lattice
+from coulomb_gmg_tpu_torch.config import (golden_gaussian_config,
+                                          production_scaling_config)
+from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
 from coulomb_gmg_tpu_torch import device as D
 from coulomb_gmg_tpu_torch.driver import Simulation, check_slice
 
@@ -27,8 +29,10 @@ for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 assert "coulomb_gmg_tpu_torch.driver" in sys.modules
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("MODULES", len(names), "JAX", bad)
-sys.exit(1 if bad else 0)
+ref = sorted(m for m in sys.modules if m == "coulomb_gmg_tpu"
+             or m.startswith("coulomb_gmg_tpu."))
+print("MODULES", len(names), "JAX", bad, "REFERENCE", ref)
+sys.exit(1 if bad or ref else 0)
 """
 
 
@@ -39,7 +43,7 @@ def test_port_and_smoke_script_never_import_jax():
     p = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
-    assert "JAX []" in p.stdout
+    assert "JAX [] REFERENCE []" in p.stdout
 
 
 @pytest.mark.parametrize("override", [
@@ -59,12 +63,17 @@ def test_golden_host_path_is_not_the_slice():
 
 
 def test_device_is_explicit():
+    """The device defaults to the card: it resolves to cuda where there is
+    one and raises "no CUDA device" here; the CPU only when asked for."""
+    from coulomb_gmg_tpu_torch.cli import main
     cfg = production_scaling_config(1, dtype="float32")
-    with pytest.raises(TypeError):
+    if torch.cuda.is_available():
+        assert Simulation(cfg, atoms=nacl_lattice(1)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         Simulation(cfg, atoms=nacl_lattice(1))
-    with pytest.raises(SystemExit):
-        from coulomb_gmg_tpu_torch.cli import main
-        main(["--production", "1"])                 # --device is required
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--production", "1"])                 # --device defaults to cuda
 
 
 def test_cuda_request_without_card_raises():

@@ -3,7 +3,9 @@
 Inputs are made with numpy from a seed and handed to both packages: the JAX
 reference (coulomb_gmg_tpu, on the CPU with x64, as conftest.py sets it up)
 and the PyTorch port (coulomb_gmg_tpu_torch, on the CPU, where every kernel
-wrapper runs its plain PyTorch version).
+wrapper runs its plain PyTorch version).  Meshes, atoms and constraints are
+built with the port's host modules (tests/test_torch_host.py holds them
+equal to the JAX package's); the JAX functions take them as they are.
 """
 
 from __future__ import annotations
@@ -13,10 +15,10 @@ import os
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu.fem.constraints import build_constraints
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.models.atoms import nacl_lattice
-from coulomb_gmg_tpu.ops.q1 import element_tables
+from coulomb_gmg_tpu_torch.fem.constraints import build_constraints
+from coulomb_gmg_tpu_torch.mesh.forest import Forest
+from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+from coulomb_gmg_tpu_torch.ops.q1 import element_tables
 
 torch.set_num_threads(2)          # tier-1 runs several pytest workers
 
