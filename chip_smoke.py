@@ -13,12 +13,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's bound (coulomb_gmg_tpu_torch/roofline.py, from this run's
    inputs) and, for the ELL SpMV, the time of the one PyTorch call that
    computes the same product (``torch.mv`` on a CSR tensor, cuSPARSE), a
-   yardstick the port never calls;
+   yardstick the port never calls.  The ELL kernel is also timed on every
+   level operator (A and P) of the cycle-0 hierarchy; the dense density
+   counts the (point, atom) pairs it evaluated and must give the same bits
+   with its exact skip of zero terms as without it;
 4. main path: the 8,000-atom production run (5 adaptive cycles) through
    ``Simulation``; the published per-cycle cell counts must come out
    exactly, every cycle must reach a true float64 residual of
    1e-8 * ||b|| with the earlier CG counts, and the tile-density and ELL
-   kernels must have been launched by that run;
+   kernels must have been launched by that run; afterwards the ELL kernel
+   is timed on every level operator of that run's last hierarchy;
 5. the same lattice with the reference's defaults for two flags: the
    brute-force density (no locality index) and the FE-error postprocess.
    Cycle 0 must have 512,000 cells, every cycle the true residual of
@@ -51,8 +55,9 @@ REF_CELLS = [512000, 512560, 523592, 543024, 576428]   # bench.py:65-72
 EARLIER_CG = [3, 5, 7, 8, 8]
 EARLIER_FE = [0.8200123289, 0.8031798466, 0.7377463069, 0.6519717620,
               0.5959950238]
-REPS = 20                          # timed runs of a kernel
+REPS = 20                          # timed samples of a kernel
 PLAIN_REPS = 3                     # the dense plain versions take seconds
+SAMPLE_MS = 1.0                    # back-to-back launches fill a sample
 KERNELS = ("ell_spmv", "tile_density", "dense_density", "exact_gradient")
 
 
@@ -105,21 +110,23 @@ def read_counts():
 
 
 def median_ms(fn, reps=REPS) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after a
-    warm-up run."""
+    """Median CUDA-event time of one call of ``fn`` over ``reps`` samples
+    after a warm-up run.  A sample times back-to-back calls, enough to fill
+    about SAMPLE_MS, and divides by their number: the card then runs the
+    calls without waiting for the host to launch each one."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+
+    def sample(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        return a.elapsed_time(b) / n
+    calls = min(100, max(1, int(SAMPLE_MS / sample(1))))
+    return float(np.median([sample(calls) for _ in range(reps)]))
 
 
 def bound_text(b, ms):
@@ -142,6 +149,34 @@ def ell_as_csr(cols, vals):
         return torch.sparse_csr_tensor(
             crow, cols.T[keep].contiguous(), vals.T[keep].contiguous(),
             size=(cols.shape[1], cols.shape[1]), check_invariants=False)
+
+
+def ell_levels(levels, tag):
+    """Time the ELL kernel on every level's A and P (float32, random x),
+    each checked against its plain version; one line per operator."""
+    import torch
+    from coulomb_gmg_tpu_torch import roofline
+    from coulomb_gmg_tpu_torch.ops import ell
+    rng = np.random.default_rng(2)
+    for lvl, lv in enumerate(levels):
+        for key in ("A", "P"):
+            if lv.get(key) is None:
+                continue
+            cols, vals = lv[key]
+            x = torch.from_numpy(rng.standard_normal(
+                int(cols.max()) + 1)).to(cols.device, torch.float32)
+            yk = ell.ell_mv_cuda(cols, vals, x)
+            yp = ell.ell_mv_plain(cols, vals, x)
+            err = float((yk - yp).abs().max())
+            if not err <= 1e-6 * max(float(yp.abs().max()), 1e-30):
+                raise AssertionError(f"ell_spmv {tag} level {lvl} {key}: "
+                                     f"max err {err:.3e}")
+            ms = median_ms(lambda: ell.ell_mv_cuda(cols, vals, x))
+            b = roofline.ell_spmv(cols, vals, x)
+            print(f"[ell {tag}] level {lvl} {key}: K={cols.shape[0]} rows="
+                  f"{cols.shape[1]} kernel {ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({100 * b['bound_ms'] / ms:.1f}%)",
+                  flush=True)
 
 
 def phase_kernels():
@@ -219,14 +254,20 @@ def phase_kernels():
           f"kernel {ms_ell:.4f} ms, plain {ms_ell_plain:.4f} ms, torch.mv "
           f"CSR ({csr.values().numel()} nonzeros) {ms_ell_lib:.4f} ms; "
           f"{bound_text(b_ell, ms_ell)}", flush=True)
+    ell_levels(g.ops["levels"], "cycle 0")
 
     # brute-force density at the cycle-0 RHS points x all 8,000 atoms
     args, kw = dd.density_operands(f, sim.tab_rhs.points, atoms.positions,
                                    atoms.charges, cfg.r_c, dev)
     kw["n_out"] = f.n_cells + 1
-    rb_k = dd.dense_density_cuda(*args, **kw)
+    pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+    rb_k = dd.dense_density_cuda(*args, **kw, pairs=pairs)
+    rb_all = dd.dense_density_cuda(*args, **kw, skip_r2=float("inf"))
     rb_p = dd.dense_density_plain(*args, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(rb_k, rb_all):
+        raise AssertionError("dense_density: the skip of zero terms changed "
+                             "the output")
     scale = float(rb_p.abs().max())
     err_dd = float((rb_k - rb_p).abs().max())
     tail = float((rb_k - rho_k).abs().max())
@@ -243,7 +284,9 @@ def phase_kernels():
                             PLAIN_REPS)
     b_dd = roofline.dense_density(args, kw, rb_k)
     print(f"[kernel] dense_density: {f.n_cells} cells x {n_q} points x "
-          f"{atoms.n} atoms, {b_dd['terms']} pairs with a nonzero exp; "
+          f"{atoms.n} atoms = {b_dd['pairs']} pairs, {b_dd['terms']} with a "
+          f"nonzero exp, {int(pairs)} evaluated by the kernel (ZERO_EXP "
+          f"{dd.ZERO_EXP}); cull on == cull off; "
           f"max|err| {err_dd:.3e} (max|rho| {scale:.3e}); "
           f"max|dense - tile| {tail:.3e} (the tail past the cutoff); kernel "
           f"{ms_dd:.3f} ms, plain {ms_dd_plain:.3f} ms ({PLAIN_REPS} reps); "
@@ -335,6 +378,7 @@ def phase_main_path():
     for name in ("ell_spmv", "tile_density"):
         if launches[name] <= 0:
             raise AssertionError(f"{name}: no launch on the main path")
+    ell_levels(sim.gmg.ops["levels"], f"cycle {res[-1]['cycle']}")
     return launches
 
 

@@ -5,7 +5,9 @@
 The two main paths of ``chip_smoke.py`` (8,000-atom production run; the
 same lattice with the brute-force density and the FE error), each after a
 warm-up run on 8 atoms, once untraced and once under ``torch.profiler``:
-wall, stage seconds, device busy share and device time by kernel.  Prints
+wall, stage seconds, device busy share, device time by kernel and, for each
+hand kernel, the launches and device time of each of its device functions
+(template instances, the dense density's pre-pass).  Prints
 one line per path and writes them all as JSON to ``--out`` (default
 ``build/measure.json``).  Needs a CUDA card.  Kernel times against their
 plain versions and their bounds are ``chip_smoke.py``'s phase 3.
@@ -27,6 +29,11 @@ from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
 from coulomb_gmg_tpu_torch.utils.logging import Pcout
 
 ATOMS_N = 10                      # 8 * 10^3 = 8,000 atoms
+# the hand kernels' device functions (csrc/), by the name of their source
+HAND = {"tile_density": ("tile_density_kernel",),
+        "ell_spmv": ("ell_spmv_kernel",),
+        "dense_density": ("dense_density_kernel", "group_boxes_kernel"),
+        "exact_gradient": ("exact_gradient_kernel",)}
 
 
 def _run(n, flags):
@@ -60,9 +67,14 @@ def profile_paths() -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
+        hand = {kern: [{"name": e.key[:90], "count": e.count,
+                        "ms": e.self_device_time_total / 1e3}
+                       for e in dev if any(fn in e.key for fn in fns)]
+                for kern, fns in HAND.items()}
         r = {"untraced": untraced, "traced_wall_s": traced["wall_s"],
              "device_busy_ms": busy_ms,
              "device_busy_share": busy_ms / (1e3 * traced["wall_s"]),
+             "hand_kernels": hand,
              "device_items": [{"name": e.key[:90], "count": e.count,
                                "ms": e.self_device_time_total / 1e3}
                               for e in top]}

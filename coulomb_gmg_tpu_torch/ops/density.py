@@ -10,9 +10,12 @@ at every quadrature point,
 
 (src/step-50.cc:509-575 without the locality index).  :func:`dense_density`
 is the hand kernel in ``csrc/dense_density.cu`` on the card, at every atom
-count, and :func:`dense_density_plain` for CPU tensors.  The TPU path's
-far-away padding points, 512-wide tiles and 2M-point dispatch blocks are
-not carried over.
+count, and :func:`dense_density_plain` for CPU tensors.  The kernel skips
+the pairs whose float32 ``expf(-r^2 / r_c^2)`` is exactly +0, those with
+``r^2 / r_c^2 >= ZERO_EXP``, by box tests against :func:`zero_r2`; a term
+that is +0 leaves the float32 sum unchanged, so the skip changes no bit.
+The TPU path's far-away padding points, 512-wide tiles and 2M-point
+dispatch blocks are not carried over.
 """
 
 from __future__ import annotations
@@ -25,9 +28,19 @@ import torch
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch import kernels
 
-_SIG = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong,
+# The smallest float32 t from which the card's float32 expf(-t) is +0 for
+# every float32 t' >= t: the IEEE underflow point, ln 2^-150.  The expf of
+# csrc/dense_density.cu returns subnormals down to 2^-149 (at the float32
+# just below); tests/test_torch_cuda.py sweeps every float32 in
+# [ZERO_EXP, 1e4] on the card.
+ZERO_EXP = 103.97208404541016
+_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                ctypes.c_float, ctypes.c_void_p]
+                                ctypes.c_float, ctypes.c_float,
+                                ctypes.c_void_p, ctypes.c_void_p]
+_SIG_EXP = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p]
+_FNS = {"dense_density_f32": _SIG, "expf_neg_f32": _SIG_EXP}
 # (point, atom) pairs per chunk of the plain version: small on the CPU
 # (tests), large on the card (its comparison with the kernel)
 _PAIRS = {"cpu": 1 << 22, "cuda": 1 << 25}
@@ -63,28 +76,53 @@ def dense_density_plain(lower: torch.Tensor, h: torch.Tensor,
     return out
 
 
+def zero_r2(r_c: float) -> float:
+    """The kernel's skip test ``box distance^2 >= zero_r2``: ``ZERO_EXP
+    r_c^2`` raised by 1e-4 so that every skipped pair's computed
+    ``r^2 * inv_rc2`` is ``>= ZERO_EXP``."""
+    return ZERO_EXP * r_c * r_c * (1.0 + 1e-4)
+
+
 def dense_density_cuda(lower: torch.Tensor, h: torch.Tensor,
                        pref: torch.Tensor, atoms: torch.Tensor, *,
-                       inv_rc2: float, scale: float,
-                       n_out: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no fall back)."""
+                       inv_rc2: float, scale: float, n_out: int,
+                       skip_r2: float | None = None,
+                       pairs: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (no fall back).
+
+    ``skip_r2`` is the kernel's skip distance^2, :func:`zero_r2` of the
+    ``r_c`` of ``inv_rc2`` by default; ``inf`` evaluates every pair.  If
+    ``pairs`` (one int64 on the card) is given, the kernel adds to it the
+    (point, atom) pairs it evaluated."""
     ops = (lower, h, pref, atoms)
-    if not all(t.is_cuda and t.is_contiguous() for t in ops):
-        raise ValueError("dense_density_cuda: operands must be contiguous "
-                         "tensors on the card")
     if not all(t.dtype == torch.float32 for t in ops):
         raise TypeError("dense_density_cuda: float32 only")
     C, n_q = lower.shape[0], pref.shape[0]
     if (lower.shape != (C, 3) or h.shape != (C,) or pref.shape != (n_q, 3)
-            or atoms.dim() != 2 or atoms.shape[1] != 4 or n_out < C
-            or atoms.data_ptr() % 16):
-        raise ValueError("dense_density_cuda: inconsistent shapes or "
-                         "unaligned atoms")
+            or atoms.dim() != 2 or atoms.shape[1] != 4 or n_out < C):
+        raise ValueError("dense_density_cuda: inconsistent shapes")
+    if not all(t.is_contiguous() for t in ops) or atoms.data_ptr() % 16:
+        raise ValueError("dense_density_cuda: operands must be contiguous, "
+                         "atoms 16-byte aligned")
+    if pairs is not None and not (pairs.is_cuda and pairs.numel() == 1
+                                  and pairs.dtype == torch.int64):
+        raise ValueError("dense_density_cuda: pairs must be one int64 on "
+                         "the card")
+    if skip_r2 is None:
+        skip_r2 = zero_r2(inv_rc2 ** -0.5)
+    if not skip_r2 > 0:
+        raise ValueError(f"dense_density_cuda: skip_r2 {skip_r2} is not > 0")
+    if not all(t.is_cuda for t in ops):
+        raise ValueError("dense_density_cuda: operands must be on the card")
+    n_atoms = atoms.shape[0]
     out = torch.empty(n_out, n_q, dtype=torch.float32, device=lower.device)
-    lib = kernels.library("dense_density", {"dense_density_f32": _SIG})
+    gbox = torch.empty((n_atoms + 31) // 32, 8, dtype=torch.float32,
+                       device=lower.device)         # per 32-atom group box
+    lib = kernels.library("dense_density", _FNS)
     err = lib.dense_density_f32(
         lower.data_ptr(), h.data_ptr(), pref.data_ptr(), atoms.data_ptr(),
-        out.data_ptr(), C, n_out, n_q, atoms.shape[0], inv_rc2, scale,
+        gbox.data_ptr(), out.data_ptr(), C, n_out, n_q, n_atoms, inv_rc2,
+        scale, skip_r2, None if pairs is None else pairs.data_ptr(),
         torch.cuda.current_stream(lower.device).cuda_stream)
     kernels.check(err, "dense_density")
     dense_density.launches += 1
@@ -100,6 +138,20 @@ def dense_density(lower, h, pref, atoms, **kw) -> torch.Tensor:
 
 
 dense_density.launches = 0    # kernel launches (CUDA path only)
+
+
+def expf_neg_cuda(t: torch.Tensor) -> torch.Tensor:
+    """``expf(-t)`` by the kernel library's own ``expf`` (the one the
+    density kernel inlines), for the sweep that checks :data:`ZERO_EXP`."""
+    if not (t.is_cuda and t.is_contiguous() and t.dtype == torch.float32):
+        raise ValueError("expf_neg_cuda: a contiguous float32 tensor on the "
+                         "card")
+    out = torch.empty_like(t)
+    lib = kernels.library("dense_density", _FNS)
+    kernels.check(lib.expf_neg_f32(
+        t.data_ptr(), out.data_ptr(), t.numel(),
+        torch.cuda.current_stream(t.device).cuda_stream), "expf_neg")
+    return out
 
 
 def density_operands(forest: Forest, points_ref, positions, charges,

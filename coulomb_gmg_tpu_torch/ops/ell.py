@@ -5,7 +5,8 @@ of ``_ell_mv_t`` in coulomb_gmg_tpu/solver/tpu_gmg.py: ``y[i] = sum_k
 vals[k, i] * x[cols[k, i]]``, padding slots holding value 0.  Every level,
 interface, transfer and constraint-expansion apply of the solve goes through
 :func:`ell_mv`; on a CUDA tensor that is the hand kernel in
-``csrc/ell_spmv.cu``.
+``csrc/ell_spmv.cu`` (unrolled for K = 27, streaming loads of ``cols`` and
+``vals``; the same FMA chain in k order, so the same bits, for every K).
 """
 
 from __future__ import annotations
@@ -37,11 +38,11 @@ def ell_mv_cuda(cols: torch.Tensor, vals: torch.Tensor,
     if cols.dim() != 2 or cols.shape != vals.shape or x.dim() != 1:
         raise ValueError(f"ell_mv: shapes cols {tuple(cols.shape)}, vals "
                          f"{tuple(vals.shape)}, x {tuple(x.shape)}")
-    if not (cols.is_cuda and vals.is_cuda and x.is_cuda):
-        raise ValueError("ell_mv_cuda: every operand must be on the card")
     if not (cols.is_contiguous() and vals.is_contiguous()
             and x.is_contiguous()):
         raise ValueError("ell_mv_cuda: operands must be contiguous")
+    if not (cols.is_cuda and vals.is_cuda and x.is_cuda):
+        raise ValueError("ell_mv_cuda: every operand must be on the card")
     K, n = cols.shape
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     lib = kernels.library("ell_spmv", {f: _SIG for f in _FN.values()})

@@ -96,6 +96,85 @@ def test_erf_is_one_past_the_far_threshold_on_card(card):
     assert bool((torch.special.erf(rq) == 1).all())
 
 
+def test_expf_is_zero_from_zero_exp_on_card(card):
+    """The dense-density kernel skips the terms with r^2 / r_c^2 >=
+    ZERO_EXP: its library's expf(-t) is +0 for every float32 t in
+    [ZERO_EXP, 1e4], and not for the float32 just below ZERO_EXP."""
+    lo, hi = (int(np.float32(v).view(np.int32)) for v in (dd.ZERO_EXP, 1e4))
+    t = torch.arange(lo - 1, hi + 1, dtype=torch.int32,
+                     device=card).view(torch.float32)
+    e = dd.expf_neg_cuda(t)
+    assert float(e[0]) > 0
+    assert bool((e[1:] == 0).all()) and not bool(torch.signbit(e[1:]).any())
+
+
+def _dense_skip_on_off(args, kw, card):
+    pairs = torch.zeros(1, dtype=torch.int64, device=card)
+    on = dd.dense_density_cuda(*args, **kw, pairs=pairs)
+    off = dd.dense_density_cuda(*args, **kw, skip_r2=float("inf"))
+    return on, off, int(pairs)
+
+
+@pytest.mark.parametrize("refine_seed", [None, 2])
+def test_dense_density_skip_changes_no_bit(card, refine_seed):
+    f, atoms, tab = tile_setup(2, 2, refine_seed)
+    args, kw = dd.density_operands(f, tab.points, atoms.positions,
+                                   atoms.charges, R_C, card)
+    kw["n_out"] = f.n_cells + 1
+    on, off, pairs = _dense_skip_on_off(args, kw, card)
+    assert torch.equal(on, off)
+    assert 0 < pairs <= f.n_cells * len(tab.points) * atoms.n
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_density_skip_near_the_zero_distance(card, seed):
+    """Atoms within 0.1% of the zero distance sqrt(ZERO_EXP) r_c of cell
+    corners and of quadrature points: the skip drops some pairs and changes
+    no bit."""
+    f, _, tab = tile_setup(2, 2, 2)
+    rng = np.random.default_rng(seed)
+    lower, h = f.cell_lower(), f.cell_h()
+    n = 3000
+    c = rng.integers(0, f.n_cells, n)
+    q = rng.integers(0, len(tab.points), n)
+    at_corner = rng.random(n) < 0.5
+    src = lower[c] + np.where(at_corner[:, None], 0.0,
+                              h[c, None] * tab.points[q])
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = np.sqrt(dd.ZERO_EXP) * R_C * (1 + rng.uniform(-1e-3, 1e-3, n))
+    pos = src + d * dist[:, None]
+    charges = rng.choice([-1.0, 1.0], n) * rng.uniform(0.5, 2.0, n)
+    args, kw = dd.density_operands(f, tab.points, pos, charges, R_C, card)
+    kw["n_out"] = f.n_cells + 1
+    on, off, pairs = _dense_skip_on_off(args, kw, card)
+    assert torch.equal(on, off)
+    assert 0 < pairs < f.n_cells * len(tab.points) * n
+    rp = dd.dense_density_plain(*args, **kw)
+    assert float((on - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-13)])
+@pytest.mark.parametrize("K", [27, 8, 5])
+@pytest.mark.parametrize("n", [1, 3, 531443])
+def test_ell_kernel_matches_plain_at_k_and_n(card, dtype, tol, K, n):
+    """Random (K, n) operators with zero padding slots, at the K the kernel
+    unrolls (27) and two it loops over in steps of 4 (8, and 5 with a
+    tail), at n = 1, 3 and an odd n of the finest 8k level's size."""
+    rng = np.random.default_rng(K * 7 + n)
+    cols = torch.from_numpy(rng.integers(0, n, (K, n)).astype(
+        np.int32)).to(card)
+    v = rng.standard_normal((K, n))
+    v[rng.random((K, n)) < 0.1] = 0.0
+    vals = torch.from_numpy(v).to(card, dtype)
+    x = torch.from_numpy(rng.standard_normal(n)).to(card, dtype)
+    yk = ell.ell_mv(cols, vals, x)
+    yp = ell.ell_mv_plain(cols, vals, x)
+    scale = (vals.abs() * x[cols].abs()).sum(0)
+    assert bool(((yk - yp).abs() <= tol * scale).all())
+
+
 @pytest.mark.parametrize("refine_seed", [None, 2])
 def test_dense_density_kernel_matches_plain(card, refine_seed):
     f, atoms, tab = tile_setup(2, 2, refine_seed)

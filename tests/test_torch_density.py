@@ -75,3 +75,123 @@ def test_cpu_dispatch_is_plain_and_cuda_path_never_falls_back():
     assert dd.dense_density.launches == before
     with pytest.raises(ValueError):
         dd.dense_density_cuda(*args, n_out=f.n_cells, **kw)
+
+
+@pytest.mark.parametrize("r_c", [0.1, 0.5, 1.0, 2.5, 3.7])
+def test_zero_r2_in_float32(r_c):
+    """The skip distance^2, rounded to float32 as the kernel takes it, times
+    the float32 1/r_c^2 is ZERO_EXP raised by about the 1e-4 margin, both
+    from r_c and from the r_c the wrapper recovers from inv_rc2."""
+    inv = np.float32(1.0 / (r_c * r_c))
+    for rc in (r_c, float(inv) ** -0.5):
+        z = np.float32(dd.zero_r2(rc))
+        assert z > np.float32(dd.ZERO_EXP * r_c * r_c)
+        t = np.float32(z * inv)
+        assert dd.ZERO_EXP * (1 + 0.9e-4) <= t <= dd.ZERO_EXP * (1 + 1.1e-4)
+
+
+def _f32_fma(a, b, c):
+    """fma in float32, through float64 (the product of two float32 values
+    is exact there)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _sq3(dx, dy, dz, fused):
+    """dx^2 + dy^2 + dz^2 in float32, plainly rounded or as the compiler
+    contracts it, fma(dz, dz, fma(dy, dy, dx * dx))."""
+    if fused:
+        return _f32_fma(dz, dz, _f32_fma(dy, dy, dx * dx))
+    return dx * dx + dy * dy + dz * dz
+
+
+def _box_d2(lo, hi, X, fused):
+    """Squared distance from points X (..., 3) to the box [lo, hi], as the
+    kernel's box tests compute it in float32."""
+    d = np.maximum(np.maximum(lo - X, X - hi), np.float32(0))
+    return _sq3(d[..., 0], d[..., 1], d[..., 2], fused)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_box_test_model_never_drops_a_live_pair(seed, fused):
+    """A numpy float32 model of the kernel's two box tests (a warp's 64
+    points, 8 cells in a row along z, against atoms and against groups of
+    32 atoms) on atoms within 0.03% of the zero distance: no atom or group
+    that the tests skip has a pair whose float32 r^2 * inv_rc2 is below
+    ZERO_EXP, and the tests do skip some."""
+    rng = np.random.default_rng(seed)
+    r_c = float(rng.choice([0.5, 0.37, 1.3]))
+    f32 = np.float32
+    inv = f32(1.0 / (r_c * r_c))
+    z2 = f32(dd.zero_r2(r_c))
+    h = f32(0.25 * rng.choice([1.0, 0.5]))
+    g = 0.5 - 0.5 / np.sqrt(3.0)
+    pref = np.array([[a, b, c] for a in (g, 1 - g) for b in (g, 1 - g)
+                     for c in (g, 1 - g)], np.float32)
+    lower = (f32(-3.0) + h * np.stack(
+        [np.full(8, 5), np.full(8, 7), np.arange(8)], 1)).astype(np.float32)
+    pts = (lower[:, None, :] + h * pref[None]).reshape(-1, 3)  # float32 ops
+    lo, hi = pts.min(0), pts.max(0)
+    # atoms in groups of 32, each group outward from one corner of the box
+    # (every corner is one of the points), at 1 +- 3e-4 times the zero
+    # distance from it
+    n_g, n = 64, 64 * 32
+    corner = np.where(rng.random((n_g, 3)) < 0.5, lo, hi).repeat(32, 0)
+    d = np.abs(rng.standard_normal((n_g, 3))).repeat(32, 0) \
+        + 0.2 * np.abs(rng.standard_normal((n, 3)))
+    d *= np.where(corner == lo, -1.0, 1.0)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = np.sqrt(dd.ZERO_EXP) * r_c * (1 + rng.uniform(-3e-4, 3e-4, n))
+    X = (corner + d * dist[:, None]).astype(np.float32)
+    dp = pts[:, None, :] - X[None]                        # (64, n, 3)
+    t = _sq3(dp[..., 0], dp[..., 1], dp[..., 2], fused) * inv
+    live = (t < dd.ZERO_EXP).any(0)                       # per atom
+    skip = _box_d2(lo, hi, X, fused) >= z2
+    assert skip.any() and (~skip).any() and live.any()
+    assert not (skip & live).any()
+    glo = X.reshape(-1, 32, 3).min(1)
+    ghi = X.reshape(-1, 32, 3).max(1)
+    gd = np.maximum(np.maximum(glo - hi, lo - ghi), f32(0))
+    gskip = _sq3(gd[:, 0], gd[:, 1], gd[:, 2], fused) >= z2
+    assert not (gskip & live.reshape(-1, 32).any(1)).any()
+    assert (gskip == skip.reshape(-1, 32).all(1))[gskip].all()
+
+
+def _cpu_operands():
+    f, atoms, tab = tile_setup(1, 2)
+    args, kw = dd.density_operands(f, tab.points, atoms.positions,
+                                   atoms.charges, R_C, "cpu")
+    return list(args), dict(kw, n_out=f.n_cells + 1)
+
+
+@pytest.mark.parametrize("fault, error, match", [
+    ("float64", TypeError, "float32"),
+    ("short h", ValueError, "shapes"),
+    ("n_out", ValueError, "shapes"),
+    ("unaligned atoms", ValueError, "aligned"),
+    ("strided pref", ValueError, "contiguous"),
+    ("pairs dtype", ValueError, "pairs"),
+    ("skip_r2 nan", ValueError, "skip_r2"),
+    ("none", ValueError, "on the card"),
+])
+def test_cuda_wrapper_checks_raise_on_cpu_tensors(fault, error, match):
+    args, kw = _cpu_operands()
+    if fault == "float64":
+        args = [a.double() for a in args]
+    elif fault == "short h":
+        args[1] = args[1][:-1]
+    elif fault == "n_out":
+        kw["n_out"] = args[0].shape[0] - 1
+    elif fault == "unaligned atoms":
+        A = args[3]
+        buf = torch.zeros(A.numel() + 1, dtype=torch.float32)
+        args[3] = buf[1:].view(A.shape)
+        assert args[3].is_contiguous() and args[3].data_ptr() % 16
+    elif fault == "strided pref":
+        args[2] = torch.cat([args[2], args[2]], 1)[:, ::2]
+    elif fault == "pairs dtype":
+        kw["pairs"] = torch.zeros(1, dtype=torch.int32)
+    elif fault == "skip_r2 nan":
+        kw["skip_r2"] = float("nan")
+    with pytest.raises(error, match=match):
+        dd.dense_density_cuda(*args, **kw)

@@ -68,3 +68,27 @@ def test_ell_cuda_path_never_falls_back(level_ops):
         ell_mv_cuda(cols.to(torch.int32), evals, x)     # CPU operands
     with pytest.raises(TypeError):
         ell_mv_cuda(cols.long(), evals, x)              # int64 cols
+
+
+@pytest.mark.parametrize("fault, error, match", [
+    ("x dtype", TypeError, "dtypes"),
+    ("cols int64", TypeError, "int32"),
+    ("shape", ValueError, "shapes"),
+    ("strided cols", ValueError, "contiguous"),
+    ("none", ValueError, "on the card"),
+])
+def test_ell_cuda_wrapper_checks_raise_on_cpu_tensors(level_ops, fault,
+                                                       error, match):
+    cols, vals = (t64(a) for a in level_ops[-1][:2])
+    cols = cols.to(torch.int32)
+    x = t64(np.ones(cols.shape[1]))
+    if fault == "x dtype":
+        x = x.float()
+    elif fault == "cols int64":
+        cols = cols.long()
+    elif fault == "shape":
+        vals = vals[:, :-1]
+    elif fault == "strided cols":
+        cols = torch.cat([cols, cols], 1)[:, ::2]
+    with pytest.raises(error, match=match):
+        ell_mv_cuda(cols, vals, x)
