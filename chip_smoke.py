@@ -30,10 +30,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    and equal the earlier runs' to rel 1e-8, the last one must agree with
    its float64 plain recomputation to rel 1e-4, and the dense-density,
    exact-gradient and ELL kernels (not the tile kernel) must have been
-   launched by that run.
+   launched by that run;
+6. the host-assembled path at full width: the same 8,000-atom study in the
+   reference's own precision (float64, host CSR assembly, the level-matrix
+   GMG with the host SSOR smoother and its coarse CG, the float64 list
+   density), ``production_scaling_config(10, dtype="float64",
+   device_operators="off")``.  The published cells must come out exactly,
+   every cycle at a true float64 residual of 1e-8 * ||b||, the solution
+   finite, the ELL kernel launched (float64 launches among them) and the
+   tile kernel not; it prints the CG counts, stage seconds, the SSOR
+   host seconds, the coarse CG iterations per V-cycle, the system ELL's K
+   and padding share and the peak device memory;
+7. the other two host-assembled routes at a smaller size:
+   ``examples/step-16.prm`` in float32 (tile density, ``TpuGMG`` with
+   ``solve_refined``) and the same file with the Jacobi preconditioner
+   (``tpu_cg_solve``), cells and CG held to JAX CPU runs of the same
+   configurations.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (launches summed over
+phases 4 to 7); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -55,6 +70,16 @@ REF_CELLS = [512000, 512560, 523592, 543024, 576428]   # bench.py:65-72
 EARLIER_CG = [3, 5, 7, 8, 8]
 EARLIER_FE = [0.8200123289, 0.8031798466, 0.7377463069, 0.6519717620,
               0.5959950238]
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# JAX CPU runs (coulomb_gmg_tpu Simulation, x64 on, solver_backend="tpu_cg",
+# smoother="mc_ssor") of examples/step-16.prm in float32: GMG with
+# flag_rhs_assembly=True, 5 cycles, through the fused TpuGMG solve; Jacobi,
+# 3 cycles.  The Jacobi route's CG runs past float32 resolution at the
+# .prm's 1e-8 (its true residual stays near 1e-6 * |b|), so its count
+# depends on rounding: it is held to +-4, the GMG route's to +-1.
+STEP16_F32 = dict(cells=[4096, 5307, 7526, 10032, 17312],
+                  cg=[6, 15, 15, 17, 17], slack=1)
+STEP16_JACOBI = dict(cells=[4096, 5307, 7526], cg=[13, 19, 28], slack=4)
 REPS = 20                          # timed samples of a kernel
 PLAIN_REPS = 3                     # the dense plain versions take seconds
 SAMPLE_MS = 1.0                    # back-to-back launches fill a sample
@@ -103,6 +128,7 @@ def counters():
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
+    counters()["ell_spmv"].launches_f64 = 0
 
 
 def read_counts():
@@ -455,6 +481,129 @@ def phase_bruteforce_fe():
     return launches
 
 
+def stage_text(r):
+    return " ".join(f"{k.split(',')[0].replace(' ', '_')}={v:.2f}"
+                    for k, v in r["stages"].items())
+
+
+def phase_host_f64():
+    import torch
+    from coulomb_gmg_tpu_torch.config import production_scaling_config
+    from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+    from coulomb_gmg_tpu_torch.utils.logging import Pcout
+    from coulomb_gmg_tpu_torch import roofline
+    from coulomb_gmg_tpu_torch.driver import Simulation
+    from coulomb_gmg_tpu_torch.ops import ell
+    from coulomb_gmg_tpu_torch.ops.smoothers import HostSSOR
+
+    cfg = production_scaling_config(ATOMS_N, dtype="float64",
+                                    device_operators="off")
+    sim = Simulation(cfg, atoms=nacl_lattice(ATOMS_N), device="cuda",
+                     pcout=Pcout(enabled=False))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = sim.run()
+    wall = time.time() - t0
+    launches = read_counts()
+    f64 = ell.ell_mv.launches_f64
+    for r in res:
+        cc = r["coarse_cg"] or []
+        print(f"[host f64 cycle {r['cycle']}] cells {r['n_cells']} dofs "
+              f"{r['n_dofs']} levels {len(r['dofs_by_level'])} cg "
+              f"{r['cg_iterations']} residual {r['residual']:.3e} (|b| "
+              f"{r['l2_rhs']:.6e}) coarse CG {len(cc)} V-cycles, "
+              f"iterations {cc}, {r['coarse_s'] or 0.0:.2f} s; s: "
+              f"{stage_text(r)}", flush=True)
+    ssor = {id(e[3].precond): e[3].precond for e in sim._gmg_cache.values()
+            if e[3] is not None and isinstance(e[3].precond, HostSSOR)}
+    calls = sum(h.calls for h in ssor.values())
+    solve_s = sum(h.solve_s for h in ssor.values())
+    copy_s = sum(h.copy_s for h in ssor.values())
+    cols, vals = sim.A.ell()
+    K, n = cols.shape
+    pad = 1.0 - sim.A.nnz / (K * n)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(n)).to(
+        cols.device)
+    err = float((ell.ell_mv_cuda(cols, vals, x)
+                 - ell.ell_mv_plain(cols, vals, x)).abs().max())
+    if not err <= 1e-12 * float(ell.ell_mv_plain(cols, vals, x).abs().max()):
+        raise AssertionError(f"host f64: system ELL kernel max err {err:.3e}")
+    ms = median_ms(lambda: ell.ell_mv_cuda(cols, vals, x))
+    b = roofline.ell_spmv(cols, vals, x)
+    print(f"[host f64] system ELL float64 (last cycle): kernel {ms:.4f} ms, "
+          f"max|err| {err:.3e}; {bound_text(b, ms)}", flush=True)
+    cg = [r["cg_iterations"] for r in res]
+    print(f"[host f64] wall {wall:.2f} s; CG {cg}; launches {launches} "
+          f"(ELL float64 {f64}); SSOR {calls} applications on "
+          f"{len(ssor)} levels: host solves {solve_s:.2f} s, copies "
+          f"{copy_s:.2f} s; system ELL (last cycle) K={K} rows={n} nnz="
+          f"{sim.A.nnz} padding {100 * pad:.1f}%; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    cells = [r["n_cells"] for r in res]
+    if cells != REF_CELLS:
+        raise AssertionError(f"host f64: cells {cells} != {REF_CELLS}")
+    for r in res:
+        if not r["residual"] <= 1.01e-8 * r["l2_rhs"]:
+            raise AssertionError(f"host f64 cycle {r['cycle']}: residual "
+                                 f"{r['residual']:.3e} > 1.01e-8 * |b|")
+    if not np.isfinite(sim.solution).all():
+        raise AssertionError("host f64: non-finite solution")
+    if not (launches["ell_spmv"] > 0 and f64 > 0
+            and launches["tile_density"] == 0):
+        raise AssertionError(f"host f64: launch counts {launches}, float64 "
+                             f"ELL {f64}")
+    return launches
+
+
+def phase_routes():
+    from coulomb_gmg_tpu_torch.config import load_prm
+    from coulomb_gmg_tpu_torch.io.lammps import read_lammps_file
+    from coulomb_gmg_tpu_torch.utils.logging import Pcout
+    from coulomb_gmg_tpu_torch.driver import Simulation
+
+    total = dict.fromkeys(KERNELS, 0)
+    for tag, ref, over in (
+            ("step16 f32", STEP16_F32, dict(flag_rhs_assembly=True)),
+            ("step16 jacobi", STEP16_JACOBI,
+             dict(preconditioner="Jacobi", n_adaptive_cycles=3))):
+        cfg = load_prm(os.path.join(ROOT, "examples", "step-16.prm"),
+                       dtype="float32", smoother="mc_ssor", **over)
+        atoms = read_lammps_file(os.path.join(ROOT, cfg.lammps_file))
+        sim = Simulation(cfg, atoms=atoms, device="cuda",
+                         pcout=Pcout(enabled=False))
+        reset_counts()
+        t0 = time.time()
+        res = sim.run()
+        wall = time.time() - t0
+        launches = read_counts()
+        for k in KERNELS:
+            total[k] += launches[k]
+        cells = [r["n_cells"] for r in res]
+        cg = [r["cg_iterations"] for r in res]
+        rel = " ".join(f"{r['residual'] / r['l2_rhs']:.3e}" for r in res)
+        print(f"[{tag}] wall {wall:.2f} s; cells {cells} (JAX "
+              f"{ref['cells']}); CG {cg} (JAX {ref['cg']}); residual/|b| "
+              f"{rel}; launches {launches}", flush=True)
+        if cells != ref["cells"]:
+            raise AssertionError(f"{tag}: cells {cells} != JAX {ref['cells']}")
+        if any(abs(a - b) > ref["slack"] for a, b in zip(cg, ref["cg"])):
+            raise AssertionError(f"{tag}: CG {cg} vs JAX {ref['cg']} "
+                                 f"(+-{ref['slack']})")
+        if not np.isfinite(sim.solution).all():
+            raise AssertionError(f"{tag}: non-finite solution")
+        want_tile = tag == "step16 f32"
+        if launches["ell_spmv"] <= 0 or (launches["tile_density"] > 0) \
+                != want_tile:
+            raise AssertionError(f"{tag}: launch counts {launches}")
+        if want_tile:
+            for r in res:
+                if not r["residual"] <= 1.01e-8 * r["l2_rhs"]:
+                    raise AssertionError(f"{tag} cycle {r['cycle']}: "
+                                         f"residual {r['residual']:.3e}")
+    return total
+
+
 def main():
     smi = phase_device()
     import torch
@@ -462,16 +611,19 @@ def main():
     timing = phase_kernels()
     main4 = phase_main_path()
     main5 = phase_bruteforce_fe()
+    main6 = phase_host_f64()
+    main7 = phase_routes()
     replaces = {"tile_density": "coulomb_gmg_tpu/ops/tile_density.py:179",
                 "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
                 "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45"}
-    # launches: the sum over the two main-path runs (phases 4 and 5)
+    # launches: the sum over the main-path runs (phases 4 to 7)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"coulomb_gmg_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name],
-         "launches": main4[name] + main5[name], **timing[name]}
+         "launches": sum(m[name] for m in (main4, main5, main6, main7)),
+         **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
                      "exact_gradient")]}
     print(smi)

@@ -3,14 +3,19 @@
     python -m coulomb_gmg_tpu_torch.cli --production 10 --device cuda
     python -m coulomb_gmg_tpu_torch.cli examples/gaussian-charges.prm \
         --device cuda
+    python -m coulomb_gmg_tpu_torch.cli examples/step-16.prm --float64
 
 ``--production N`` runs the reference's published scaling study
 (config.py:production_scaling_config) on the generated ``8 N^3``-atom NaCl
 lattice.  A ``.prm`` file is parsed as by the JAX package's CLI (its
-LAMMPS file name is relative to the working directory); settings outside
-the ported slice raise NotImplementedError (see ROADMAP.md).  The
-device defaults to the card and raises without one; ``--device cpu`` runs
-the kernels' plain versions.  Nothing falls back to the CPU.
+LAMMPS file name is relative to the working directory); several devices
+and output raise NotImplementedError (see ROADMAP.md).  Runs are float32
+with the multicolour SSOR smoother unless ``--float64`` asks for the
+reference's precision with the ``.prm``'s own smoother (the precision half
+of the JAX CLI's ``--cpu`` golden-parity mode), on whatever device
+``--device`` names; ``--smoother`` overrides the smoother.  The device
+defaults to the card and raises without one; ``--device cpu`` runs the
+kernels' plain versions.  Nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -30,6 +35,11 @@ def main(argv=None):
                     help="torch device, e.g. cuda (default), cuda:0 or cpu")
     ap.add_argument("--cycles", type=int, default=None,
                     help="override number of adaptive cycles")
+    ap.add_argument("--float64", action="store_true",
+                    help="float64 with the .prm's own smoother "
+                         "(golden-parity precision)")
+    ap.add_argument("--smoother", default=None,
+                    choices=["ssor", "mc_ssor", "jacobi", "chebyshev"])
     args = ap.parse_args(argv)
     if (args.prm is None) == (args.production is None):
         ap.error("give either a .prm file or --production N")
@@ -38,9 +48,16 @@ def main(argv=None):
     from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
     from coulomb_gmg_tpu_torch.driver import Simulation
 
-    overrides = {"dtype": "float32"}
+    overrides = {}
     if args.cycles is not None:
         overrides["n_adaptive_cycles"] = args.cycles
+    if args.smoother is not None:
+        overrides["smoother"] = args.smoother
+    if args.float64:
+        overrides["dtype"] = "float64"
+    else:
+        overrides["dtype"] = "float32"
+        overrides.setdefault("smoother", "mc_ssor")
     if args.production is not None:
         cfg = production_scaling_config(args.production, **overrides)
         atoms = nacl_lattice(args.production)

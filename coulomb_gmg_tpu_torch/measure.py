@@ -1,10 +1,11 @@
-"""Profile of the PyTorch port's two 8k main paths on one CUDA card.
+"""Profile of the PyTorch port's three 8k paths on one CUDA card.
 
     python -m coulomb_gmg_tpu_torch.measure [--out FILE]
 
-The two main paths of ``chip_smoke.py`` (8,000-atom production run; the
-same lattice with the brute-force density and the FE error), each after a
-warm-up run on 8 atoms, once untraced and once under ``torch.profiler``:
+The three 8,000-atom runs of ``chip_smoke.py`` (the production run; the
+same lattice with the brute-force density and the FE error; the
+host-assembled float64 run), each after a warm-up run on 8 atoms, once
+untraced and once under ``torch.profiler``:
 wall, stage seconds, device busy share, device time by kernel and, for each
 hand kernel, the launches and device time of each of its device functions
 (template instances, the dense density's pre-pass).  Prints
@@ -37,7 +38,7 @@ HAND = {"tile_density": ("tile_density_kernel",),
 
 
 def _run(n, flags):
-    cfg = production_scaling_config(n, dtype="float32", **flags)
+    cfg = production_scaling_config(n, **{"dtype": "float32", **flags})
     sim = Simulation(cfg, atoms=nacl_lattice(n), device="cuda",
                      pcout=Pcout(enabled=False))
     t0 = time.time()
@@ -57,7 +58,9 @@ def profile_paths() -> dict:
     out = {}
     for name, flags in (("8k", {}),
                         ("8k defaults", dict(flag_rhs_assembly=False,
-                                             flag_postprocess_error=True))):
+                                             flag_postprocess_error=True)),
+                        ("8k float64 host", dict(dtype="float64",
+                                                 device_operators="off"))):
         _run(1, flags)                                  # warm-up
         untraced = _run(ATOMS_N, flags)
         with profile(activities=[ProfilerActivity.CPU,

@@ -1,9 +1,10 @@
 """Analytic problem definitions (RHS, exact solution, boundary values).
 
-Counterpart of coulomb_gmg_tpu/models/problems.py for the functions the
-production slice uses (the reference's ``Function`` objects in
-``include/step_50.h:322-385``).  Points are ``(N, dim)`` tensors; results
-are ``(N,)`` tensors of the points' dtype and device.
+Counterpart of coulomb_gmg_tpu/models/problems.py (the reference's
+``Function`` objects in ``include/step_50.h:216-386``).  Points are
+``(N, dim)`` tensors; results are ``(N,)`` tensors of the points' dtype and
+device.  The moments (dipole, quadrupole) are float64 numpy, as in the JAX
+module.
 """
 
 from __future__ import annotations
@@ -14,6 +15,24 @@ import numpy as np
 import torch
 
 SQRT_PI = math.sqrt(math.pi)
+
+
+def step16_rhs(points: torch.Tensor) -> torch.Tensor:
+    """f = 10 (include/step_50.h:240-244)."""
+    return torch.full(points.shape[:-1], 10.0, dtype=points.dtype,
+                      device=points.device)
+
+
+def step16_coefficient(points: torch.Tensor) -> torch.Tensor:
+    """c = 5 inside r < 0.5, else 1 (include/step_50.h:246-254)."""
+    r2 = torch.sum(points * points, dim=-1)
+    return torch.where(r2 < 0.25, 5.0, 1.0).to(points.dtype)
+
+
+def gaussian_coefficient(points: torch.Tensor) -> torch.Tensor:
+    """c = 1 (include/step_50.h:331-336)."""
+    return torch.ones(points.shape[:-1], dtype=points.dtype,
+                      device=points.device)
 
 
 def gaussian_rhs(points: torch.Tensor, r_c: float) -> torch.Tensor:
@@ -61,6 +80,19 @@ def analytic_solution_gradient(points: torch.Tensor,
     return torch.sum((charges * radial)[..., None] * unit, dim=-2)
 
 
+def analytic_solution_without_lammps(points: torch.Tensor,
+                                     r_c: float) -> torch.Tensor:
+    """(erf(2 r / r_c) - erf(r / r_c)) / (4 pi r), with its r -> 0 limit
+    (include/step_50.h:371-376)."""
+    r = torch.sqrt(torch.sum(points * points, dim=-1))
+    small = r < 1e-14
+    safe_r = torch.where(small, torch.ones_like(r), r)
+    limit = (2.0 / SQRT_PI) * (2.0 - 1.0) / (4.0 * math.pi * r_c)
+    val = (torch.special.erf(2.0 * safe_r / r_c)
+           - torch.special.erf(safe_r / r_c)) / (4.0 * math.pi * safe_r)
+    return torch.where(small, torch.full_like(r, limit), val)
+
+
 def nonzero_dbc(points: torch.Tensor, x0, dipole, quadrupole) -> torch.Tensor:
     """Multipole far-field boundary values:
     p0.(x-x0)/|x-x0|^3 + 0.5 (x-x0)^T Q0 (x-x0) / |x-x0|^5
@@ -77,3 +109,36 @@ def nonzero_dbc(points: torch.Tensor, x0, dipole, quadrupole) -> torch.Tensor:
 def compute_dipole_moment(atom_positions, charges) -> np.ndarray:
     """p0 = sum_k q_k X_k (src/step-50.cc:588-590), float64 numpy."""
     return np.asarray(atom_positions).T @ np.asarray(charges)
+
+
+def compute_quadrupole_moment(quad_points, jxw, rho) -> np.ndarray:
+    """Q0 = integral rho(x) (3 x (x) x - |x|^2 I) dV by quadrature
+    (src/step-50.cc:595-623): ``quad_points`` (cells, q, dim), ``jxw`` and
+    ``rho`` (cells, q).  The reference zeroes the result right after
+    computing it (src/step-50.cc:624); this is the integral itself."""
+    dim = np.asarray(quad_points).shape[-1]
+    x = np.asarray(quad_points).reshape(-1, dim)
+    w = (np.asarray(jxw) * np.asarray(rho)).reshape(-1)
+    S = (x * w[:, None]).T @ x
+    return 3.0 * S - np.trace(S) * np.eye(dim)
+
+
+def quadrupole_from_forest(forest, points_ref, weights, rho,
+                           chunk: int = 65536) -> np.ndarray:
+    """The quadrupole integral over the mesh, second moments accumulated
+    per chunk of cells in float32 (as the JAX function does) into float64;
+    ``rho`` is the (n_cells, n_q) density at the reference points."""
+    dim = forest.dim
+    lower = forest.cell_lower().astype(np.float32)
+    h = forest.cell_h().astype(np.float32)
+    pr = np.asarray(points_ref, np.float32)
+    wq = np.asarray(weights, np.float32)
+    rho = np.asarray(rho, np.float32)
+    S = np.zeros((dim, dim), np.float64)
+    for s in range(0, forest.n_cells, chunk):
+        e = min(s + chunk, forest.n_cells)
+        x = (lower[s:e, None, :] + h[s:e, None, None] * pr[None, :, :])
+        x = x.reshape(-1, dim)
+        w = ((h[s:e] ** dim)[:, None] * wq[None, :] * rho[s:e]).reshape(-1)
+        S += ((x * w[:, None]).T @ x).astype(np.float64)
+    return 3.0 * S - np.trace(S) * np.eye(dim)

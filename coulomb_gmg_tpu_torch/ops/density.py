@@ -1,10 +1,10 @@
-"""Brute-force charge density at the RHS quadrature points.
+"""Charge density at the RHS quadrature points.
 
 Counterpart of coulomb_gmg_tpu/ops/pallas_density.py (the Pallas
-``_density_kernel`` behind ``density_pallas_cells``) and of the brute-force
-branch of coulomb_gmg_tpu/ops/density.py:compute_density, which runs when
-the reference's "Flag for RHS evaluation optimization" is off: every atom
-at every quadrature point,
+``_density_kernel`` behind ``density_pallas_cells``) and of
+coulomb_gmg_tpu/ops/density.py.  The brute-force branch runs when the
+reference's "Flag for RHS evaluation optimization" is off: every atom at
+every quadrature point,
 
     rho~(x) = 4 pi / (r_c^3 pi^1.5) * sum_a q_a exp(-|x - X_a|^2 / r_c^2)
 
@@ -16,6 +16,13 @@ the pairs whose float32 ``expf(-r^2 / r_c^2)`` is exactly +0, those with
 that is +0 leaves the float32 sum unchanged, so the skip changes no bit.
 The TPU path's far-away padding points, 512-wide tiles and 2M-point
 dispatch blocks are not carried over.
+
+:func:`compute_density` is the JAX module's mask, list and brute-force
+branches in plain PyTorch on the device (float64 runs take their density
+from it, never from the float32 kernels), with :func:`atom_masks`,
+:func:`masks_to_lists` and :func:`cell_quad_points`.  Like the JAX jnp
+code it evaluates the Gaussian per axis on the tensor-product rule (dim *
+n1 * K exponentials per cell, recombined by a batched matmul).
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from typing import Optional
 
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch import kernels
@@ -180,3 +189,154 @@ def density_bruteforce(forest: Forest, points_ref, positions, charges,
     args, kw = density_operands(forest, points_ref, positions, charges, r_c,
                                 device)
     return dense_density(*args, n_out=int(c_pad), **kw)
+
+
+# ---------------------------------------------------------------------------
+# mask, list and brute-force branches (plain PyTorch, any float dtype)
+# ---------------------------------------------------------------------------
+
+def cell_quad_points(forest: Forest, points_ref: np.ndarray,
+                     cells: Optional[np.ndarray] = None) -> np.ndarray:
+    """Physical quadrature points (n_cells, n_q, dim) for reference points
+    (n_q, dim), float64 numpy."""
+    lower = forest.cell_lower(cells)
+    h = forest.cell_h(cells)
+    return lower[:, None, :] + h[:, None, None] * points_ref[None, :, :]
+
+
+def atom_masks(forest: Forest, positions: np.ndarray, cutoff: float,
+               device, chunk: int = 65536) -> np.ndarray:
+    """(n_cells, n_atoms) bool numpy: atom within ``cutoff`` of ANY cell
+    vertex (src/step-50.cc:273-283), computed in float64 on ``device``.
+    The minimum over the 2^dim corners factorizes per axis."""
+    dev = torch.device(device)
+    pos = torch.from_numpy(np.asarray(positions, np.float64)).to(dev)
+    lower = torch.from_numpy(forest.cell_lower()).to(dev)
+    h = torch.from_numpy(forest.cell_h()).to(dev)
+    out = []
+    for s in range(0, forest.n_cells, chunk):
+        a = pos[None, :, :] - lower[s:s + chunk, None, :]
+        b = a - h[s:s + chunk, None, None]
+        d2 = torch.minimum(a * a, b * b).sum(-1)
+        out.append((d2 < cutoff * cutoff).cpu().numpy())
+    if not out:
+        return np.zeros((0, len(positions)), bool)
+    return np.concatenate(out, axis=0)
+
+
+def masks_to_lists(mask: np.ndarray, pad_to: Optional[int] = None):
+    """Dense (cells, atoms) mask -> padded per-cell atom lists (n_cells, K)
+    int32 with -1 padding, and the per-cell counts."""
+    counts = mask.sum(axis=1)
+    K = int(counts.max()) if pad_to is None else pad_to
+    lists = np.full((mask.shape[0], max(K, 1)), -1, dtype=np.int32)
+    rows, cols = np.nonzero(mask)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    lists[rows, np.arange(len(rows)) - first[rows]] = cols
+    return lists, counts
+
+
+def _tensor_rule_1d(points_ref: np.ndarray, dim: int):
+    """1-D abscissae if ``points_ref`` is their tensor-product grid (axis 0
+    slowest, axis dim-1 fastest), else None."""
+    n_q = len(points_ref)
+    n1 = int(round(n_q ** (1.0 / dim)))
+    if n1 ** dim != n_q:
+        return None
+    grids = np.stack(np.meshgrid(*([np.arange(n1)] * dim), indexing="ij"),
+                     axis=-1).reshape(-1, dim)
+    x1 = points_ref[:n1, dim - 1]
+    if np.allclose(x1[grids], points_ref, atol=1e-14):
+        return x1
+    return None
+
+
+def _sep_rho(E: torch.Tensor, qa: torch.Tensor) -> torch.Tensor:
+    """E: (C, n1, K, dim) per-axis Gaussian factors, qa (C, K) charges
+    (zero for padding).  Returns the unnormalized (C, n1^dim) sums."""
+    C, n1 = E.shape[0], E.shape[1]
+    dim = E.shape[-1]
+    if dim == 3:
+        T = (E[:, :, None, :, 1] * E[:, None, :, :, 2]).reshape(C, n1 * n1,
+                                                               -1)
+    elif dim == 2:
+        T = E[..., 1]
+    else:
+        return torch.einsum("cik,ck->ci", E[..., 0], qa)
+    T = T * qa[:, None, :]
+    return torch.einsum("cik,cjk->cij", E[..., 0], T).reshape(C, n1 ** dim)
+
+
+def _rho_block(lower, h, pref, x1, pos, qa, r_c: float) -> torch.Tensor:
+    """Unnormalized density of a block of cells over per-cell atom sets:
+    ``pos`` (C, K, dim) or (K, dim), ``qa`` (C, K)."""
+    if x1 is not None:
+        xq = lower[:, None, :] + h[:, None, None] * x1[None, :, None]
+        P = pos if pos.dim() == 3 else pos[None]
+        d = xq[:, :, None, :] - P[:, None, :, :]        # (C, n1, K, dim)
+        return _sep_rho(torch.exp(-(d * d) / (r_c * r_c)), qa)
+    pts = lower[:, None, :] + h[:, None, None] * pref[None]
+    P = pos if pos.dim() == 3 else pos[None]
+    d = pts[:, :, None, :] - P[:, None, :, :]           # (C, n_q, K, dim)
+    r2 = (d * d).sum(-1)
+    return (torch.exp(-r2 / (r_c * r_c)) * qa[:, None, :]).sum(-1)
+
+
+def compute_density(forest: Forest, points_ref: np.ndarray, positions,
+                    charges, r_c: float, device, mask=None, lists=None,
+                    dtype: torch.dtype = torch.float64,
+                    pairs_per_chunk: int = 1 << 24) -> torch.Tensor:
+    """rho~ per (cell, reference quadrature point), ``(n_cells, n_q)`` on
+    ``device``: over each cell's atom list (``lists``, -1 padded), its mask
+    row (``mask``), or every atom.  Cells with an empty locality set are
+    exactly zero, and list cells are grouped by list length (classes 8,
+    32, 128, ...) so that short lists are not padded to the longest, as in
+    coulomb_gmg_tpu/ops/density.py:compute_density."""
+    dev = torch.device(device)
+    n_cells, n_q, dim = forest.n_cells, len(points_ref), forest.dim
+    const = 4.0 * np.pi / (r_c ** 3 * np.pi ** 1.5)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+    pos = put(np.asarray(positions, np.float64).reshape(-1, dim))
+    q = put(np.asarray(charges, np.float64))
+    x1 = _tensor_rule_1d(np.asarray(points_ref, np.float64), dim)
+    x1 = put(x1) if x1 is not None else None
+    pref = put(points_ref)
+    out = torch.zeros(n_cells, n_q, dtype=dtype, device=dev)
+
+    def run(cells, width, qa_of, pos_of):
+        n1 = n_q if x1 is None else x1.numel()
+        step = max(1, pairs_per_chunk // max(n1 * width * dim, 1))
+        lower = put(forest.cell_lower(cells))
+        h = put(forest.cell_h(cells))
+        for s in range(0, len(cells), step):
+            e = min(s + step, len(cells))
+            rho = _rho_block(lower[s:e], h[s:e], pref, x1, pos_of(s, e),
+                             qa_of(s, e), r_c)
+            out[torch.from_numpy(cells[s:e]).to(dev)] = const * rho
+
+    if lists is not None:
+        counts = (lists >= 0).sum(axis=1)
+        lo, kclass = 1, 8
+        while lo <= lists.shape[1]:
+            hi = min(kclass, lists.shape[1])
+            cells = np.where((counts >= lo) & (counts <= hi))[0]
+            if len(cells):
+                li = torch.from_numpy(
+                    np.ascontiguousarray(lists[cells][:, :hi])).to(dev)
+                safe = li.clamp(min=0).long()
+                qa = torch.where(li >= 0, q[safe], 0.0)
+                run(cells, hi, lambda s, e: qa[s:e],
+                    lambda s, e: pos[safe[s:e]])
+            lo = hi + 1
+            kclass *= 4
+        return out
+    if mask is not None:
+        cells = np.where(mask.any(axis=1))[0]
+        mk = torch.from_numpy(np.ascontiguousarray(mask[cells])).to(dev)
+        run(cells, len(q), lambda s, e: q[None, :] * mk[s:e],
+            lambda s, e: pos)
+        return out
+    cells = np.arange(n_cells)
+    run(cells, len(q), lambda s, e: q[None, :].expand(e - s, -1),
+        lambda s, e: pos)
+    return out

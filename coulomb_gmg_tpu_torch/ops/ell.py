@@ -7,12 +7,18 @@ interface, transfer and constraint-expansion apply of the solve goes through
 :func:`ell_mv`; on a CUDA tensor that is the hand kernel in
 ``csrc/ell_spmv.cu`` (unrolled for K = 27, streaming loads of ``cols`` and
 ``vals``; the same FMA chain in k order, so the same bits, for every K).
+
+:class:`ELL` is the host format of the JAX module (rows x K, numpy) with
+its CSR and COO conversions; :meth:`ELL.device` hands it to the kernel in
+the transposed layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from coulomb_gmg_tpu_torch import kernels
@@ -51,6 +57,8 @@ def ell_mv_cuda(cols: torch.Tensor, vals: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "ell_spmv")
     ell_mv.launches += 1
+    if x.dtype == torch.float64:
+        ell_mv.launches_f64 += 1
     return y
 
 
@@ -64,3 +72,66 @@ def ell_mv(cols: torch.Tensor, vals: torch.Tensor,
 
 
 ell_mv.launches = 0       # kernel launches (CUDA path only)
+ell_mv.launches_f64 = 0   # the float64 ones among them
+
+
+@dataclass
+class ELL:
+    """Host-built ELL matrix (coulomb_gmg_tpu/ops/ell.py:ELL): ``cols`` /
+    ``vals`` are (n_rows, K); padding slots have value 0 and column 0."""
+
+    n_rows: int
+    n_cols: int
+    K: int
+    cols: np.ndarray   # (n_rows, K) int32
+    vals: np.ndarray   # (n_rows, K) float
+
+    @staticmethod
+    def from_coo(rowids, cols, data, n_rows: int, n_cols: int = None,
+                 pad_rows_to: int = None, pad_k_to: int = None) -> "ELL":
+        rowids = np.asarray(rowids)
+        cols = np.asarray(cols)
+        data = np.asarray(data)
+        if len(rowids) and (np.diff(rowids) < 0).any():
+            order = np.argsort(rowids, kind="stable")
+            rowids, cols, data = rowids[order], cols[order], data[order]
+        counts = np.bincount(rowids, minlength=n_rows)
+        K = int(counts.max()) if len(counts) and counts.max() > 0 else 1
+        if pad_k_to is not None:
+            K = max(K, pad_k_to)
+        n_pad = n_rows if pad_rows_to is None else max(n_rows, pad_rows_to)
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        slot = np.arange(len(rowids)) - first[rowids]
+        ecols = np.zeros((n_pad, K), dtype=np.int32)
+        evals = np.zeros((n_pad, K), dtype=data.dtype)
+        ecols[rowids, slot] = cols
+        evals[rowids, slot] = data
+        return ELL(n_rows=n_pad, n_cols=n_cols or n_rows, K=K,
+                   cols=ecols, vals=evals)
+
+    @staticmethod
+    def from_csr(indptr, indices, data, n_cols: int = None,
+                 pad_rows_to: int = None, pad_k_to: int = None) -> "ELL":
+        n_rows = len(indptr) - 1
+        counts = np.diff(indptr)
+        K = int(counts.max()) if n_rows and counts.max() > 0 else 1
+        if pad_k_to is not None:
+            K = max(K, pad_k_to)
+        n_pad = n_rows if pad_rows_to is None else max(n_rows, pad_rows_to)
+        from coulomb_gmg_tpu_torch.utils import native
+        if n_rows * K >= (1 << 20):
+            out = native.csr_to_ell(indptr, indices, np.asarray(data),
+                                    n_pad, K)
+            if out is not None:
+                return ELL(n_rows=n_pad, n_cols=n_cols or n_rows, K=K,
+                           cols=out[0], vals=out[1])
+        rowids = np.repeat(np.arange(n_rows), counts)
+        return ELL.from_coo(rowids, indices, data, n_rows, n_cols,
+                            pad_rows_to=pad_rows_to, pad_k_to=K)
+
+    def device(self, device, dtype: torch.dtype = None):
+        """(cols int32, vals) in the kernel's transposed (K, n_rows)
+        layout on ``device``."""
+        cols = torch.from_numpy(np.ascontiguousarray(self.cols.T)).to(device)
+        vals = torch.from_numpy(np.ascontiguousarray(self.vals.T)).to(device)
+        return cols, vals if dtype is None else vals.to(dtype)

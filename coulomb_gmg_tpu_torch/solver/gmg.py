@@ -2,23 +2,28 @@
 
 Counterpart of the solve half of coulomb_gmg_tpu/solver/tpu_gmg.py: the
 matrix-free system matvec (``cellwise_mv``), the Chebyshev-Jacobi smoother
-(``_cheb_t``), the exact DST coarse solve (``_coarse_apply``) and the V-cycle
-and outer CG of ``_fused_gmg_cg`` (its ``sys``-dict branch).
+(``_cheb_t``), the exact DST coarse solve (``_coarse_apply``), the
+Chebyshev-preconditioned coarse CG, and the V-cycle and outer CG of
+``_fused_gmg_cg``, with both of its system operators.
 
 The operator set is a plain dict with the layout of the JAX
 ``StencilGMG._fused_tree()``, so solver/device_gmg.py and convert.py build
 the same thing:
 
-* ``sys``: ``c2d`` (nb, C_pad) int32, ``d2c`` (nb, n_pad) int32, ``hsc``
-  (C_pad,), ``kref`` (nb, nb), ``con_mask`` (n_pad,) bool, ``con_cols_full``
-  / ``con_w_full`` (Kc, n_pad), ``conT_row`` / ``conT_w`` (Kt, n_pad),
-  ``d_reg`` (n_pad,);
+* ``sys``: the matrix-free operands (device-operator mode, a dict): ``c2d``
+  (nb, C_pad) int32, ``d2c`` (nb, n_pad) int32, ``hsc`` (C_pad,), ``kref``
+  (nb, nb), ``con_mask`` (n_pad,) bool, ``con_cols_full`` / ``con_w_full``
+  (Kc, n_pad), ``conT_row`` / ``conT_w`` (Kt, n_pad), ``d_reg`` (n_pad,);
+  or the assembled system as one ELL pair (host-assembled path,
+  solver/tpu_gmg.py);
 * ``levels``: per level ``A`` / ``if`` / ``ifT`` / ``P`` / ``R`` as
   (cols int32, vals) ELL pairs in (K, n_pad) layout (``if``, ``ifT``, ``P``
   and ``R`` may be None), ``inv_diag``, ``theta`` and ``delta`` (floats),
   ``l2g`` and ``cmask`` (the gather-form copy maps);
 * ``src_lvl`` / ``src_idx`` (n_pad,) int32: the gather-form copy back;
-* ``dst``: (S, lam, interior, inv_map, int_mask, bnd_mask) and ``dim``.
+* ``dst``: (S, lam, interior, inv_map, int_mask, bnd_mask) and ``dim``; or
+  None, and then ``coarse_rtol`` / ``coarse_maxiter`` of the coarse CG on
+  level 0's ``A``.
 
 Every accumulation is a gather over precomputed tables, never an atomic
 scatter, so the solve is deterministic from run to run.  The outer CG is a
@@ -96,6 +101,13 @@ def cellwise_mv(s: dict, v: torch.Tensor) -> torch.Tensor:
     return torch.where(s["con_mask"], s["d_reg"] * v, y)
 
 
+def sys_mv(s, v: torch.Tensor) -> torch.Tensor:
+    """The system operator: matrix-free operands (dict) or an ELL pair."""
+    if isinstance(s, dict):
+        return cellwise_mv(s, v)
+    return ell_mv(*s, v)
+
+
 def cheb(A, inv_diag, d, x0, theta: float, delta: float, degree: int,
          from_zero: bool):
     """Chebyshev iteration for A x = d on the spectrum
@@ -132,6 +144,33 @@ def _smooth(lv, d, u0, from_zero):
                 CHEB_DEGREE, from_zero)
 
 
+def coarse_cg(ops: dict, d0: torch.Tensor) -> torch.Tensor:
+    """Chebyshev-preconditioned CG on level 0 to ``coarse_rtol * |d0|``
+    or ``coarse_maxiter`` iterations (the coarse branch of the fused TPU
+    executable); one scalar read per iteration."""
+    lv = ops["levels"][0]
+    x = torch.zeros_like(d0)
+    r = d0
+    tol2 = ops["coarse_rtol"] ** 2 * float(torch.dot(r, r))
+    z = _smooth(lv, r, None, True)
+    p = z
+    rho = torch.dot(r, z)
+    r2 = float(torch.dot(r, r))
+    k = 0
+    while r2 > tol2 and k < ops["coarse_maxiter"]:
+        q = ell_mv(*lv["A"], p)
+        alpha = _safe_div(rho, torch.dot(p, q))
+        x = x + alpha * p
+        r = r - alpha * q
+        z = _smooth(lv, r, None, True)
+        rho_new = torch.dot(r, z)
+        p = z + _safe_div(rho_new, rho) * p
+        rho = rho_new
+        r2 = float(torch.dot(r, r))
+        k += 1
+    return x
+
+
 def vcycle(ops: dict, g: torch.Tensor) -> torch.Tensor:
     """One V-cycle (pre-smooth, restrict, exact coarse solve, prolongate,
     post-smooth) on the residual ``g``; copy to and from the levels are
@@ -148,8 +187,11 @@ def vcycle(ops: dict, g: torch.Tensor) -> torch.Tensor:
             r = r - ell_mv(*lv["if"], u)
         defect[l - 1] = defect[l - 1] + ell_mv(*lv["R"], r)
         sol[l] = u
-    sol[0] = coarse_apply(ops["dst"], defect[0], levels[0]["inv_diag"],
-                          ops["dim"])
+    if ops["dst"] is not None:
+        sol[0] = coarse_apply(ops["dst"], defect[0], levels[0]["inv_diag"],
+                              ops["dim"])
+    else:
+        sol[0] = coarse_cg(ops, defect[0])
     for l in range(1, L + 1):
         lv = levels[l]
         u = sol[l] + ell_mv(*lv["P"], sol[l - 1])
@@ -175,7 +217,7 @@ def gmg_cg(ops: dict, rhs: torch.Tensor, x0: torch.Tensor, tol: float,
     floats.  The stopping test compares float32-rounded quantities when the
     working type is float32, as the fused TPU executable does."""
     dt = rhs.dtype
-    r = rhs - cellwise_mv(ops["sys"], x0)
+    r = rhs - sys_mv(ops["sys"], x0)
     res2 = torch.dot(r, r)
     tol_t = torch.tensor(tol, dtype=dt)
     tol2 = float(tol_t * tol_t)
@@ -187,7 +229,7 @@ def gmg_cg(ops: dict, rhs: torch.Tensor, x0: torch.Tensor, tol: float,
     res0 = res2_h ** 0.5
     k = 0
     while k < maxiter and res2_h > tol2:
-        q = cellwise_mv(ops["sys"], p)
+        q = sys_mv(ops["sys"], p)
         alpha = _safe_div(rho, torch.dot(p, q))
         x = x + alpha * p
         r = r - alpha * q

@@ -233,3 +233,78 @@ def test_bruteforce_fe_on_card_8_atoms(card):
                for r, e in zip(res, fe))
     assert dd.dense_density.launches == 5
     assert gr.exact_gradient.launches >= 5
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-6),
+                                        (torch.float64, 1e-12)])
+def test_csr_products_and_mc_ssor_on_card(card, dtype, tol):
+    """The host-assembled CSR's products and the multicolour SSOR through
+    the ELL kernel against the same operators on the CPU."""
+    from coulomb_gmg_tpu_torch.ops.spmv import CSR
+    from coulomb_gmg_tpu_torch.ops.smoothers import lattice_color, \
+        make_mc_ssor
+    from coulomb_gmg_tpu_torch.solver.multigrid import build_gmg
+    f = adaptive_forest(3)
+    dofs = f.dofs_of(1)
+    g = build_gmg(f, dofs, element_tables(3, 1, 2), smoother="none",
+                  dtype=dtype, device="cpu")
+    A, P = g.matrices[-1], g.prolongations[-1]
+    rng = np.random.default_rng(3)
+    for M in (A, P):
+        Mc = CSR.from_pattern(M.indptr, M.indices, M.data.to(card),
+                              n_cols=M.n_cols)
+        for name, n in (("matvec", M.n_cols), ("matvec_T", M.n_rows)):
+            x = torch.from_numpy(rng.standard_normal(n)).to(dtype)
+            before = ell.ell_mv.launches
+            yk = getattr(Mc, name)(x.to(card)).cpu()
+            assert ell.ell_mv.launches == before + 1
+            yp = getattr(M, name)(x)
+            assert float((yk - yp).abs().max()) <= tol * float(
+                yp.abs().max())
+    color = lattice_color(f, dofs.levels[-1])
+    Ac = CSR.from_pattern(A.indptr, A.indices, A.data.to(card))
+    r = torch.from_numpy(rng.standard_normal(A.n_rows)).to(dtype)
+    zk = make_mc_ssor(Ac, color, 0.5)(r.to(card)).cpu()
+    zp = make_mc_ssor(A, color, 0.5)(r)
+    assert float((zk - zp).abs().max()) <= tol * float(zp.abs().max())
+
+
+def test_float64_density_on_card_matches_cpu(card):
+    from coulomb_gmg_tpu_torch.ops.neighbors import atom_lists
+    f, atoms, tab = tile_setup(1, 2, 2)
+    lists, _ = atom_lists(f, atoms.positions, CUT)
+    outs = [dd.compute_density(f, tab.points, atoms.positions, atoms.charges,
+                               R_C, dev, lists=lists).cpu()
+            for dev in (card, "cpu")]
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-13 * float(
+        outs[1].abs().max())
+
+
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+def test_host_assembled_step16_on_card(card, precision):
+    """examples/step-16.prm, 3 cycles, on the card and on the CPU: the same
+    cells and CG counts; the ELL kernel runs in the working precision and
+    in float64 (the true residual, the refinement defect)."""
+    import os
+    from coulomb_gmg_tpu_torch.config import load_prm
+    from coulomb_gmg_tpu_torch.io.lammps import read_lammps_file
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = []
+    for dev in (card, "cpu"):
+        cfg = load_prm(os.path.join(root, "examples", "step-16.prm"),
+                       dtype=precision, n_adaptive_cycles=3,
+                       flag_rhs_assembly=precision == "float32")
+        atoms = read_lammps_file(os.path.join(root, cfg.lammps_file))
+        sim = Simulation(cfg, atoms=atoms, device=dev,
+                         pcout=Pcout(enabled=False))
+        ell.ell_mv.launches = ell.ell_mv.launches_f64 = 0
+        res = sim.run()
+        out.append(([r["n_cells"] for r in res],
+                    [r["cg_iterations"] for r in res]))
+        assert all(r["residual"] <= 1.01e-8 * r["l2_rhs"] for r in res)
+        if dev == card:
+            assert ell.ell_mv.launches_f64 > 0
+            assert ell.ell_mv.launches > ell.ell_mv.launches_f64 or \
+                precision == "float64"
+    assert out[0][0] == out[1][0]
+    assert all(abs(a - b) <= 1 for a, b in zip(out[0][1], out[1][1]))

@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port: it imports neither jax nor the JAX
-package, it refuses configurations outside the ported slice, and its entry
-points run on the card unless the CPU is asked for (never falling back to
-it)."""
+package, it refuses the configurations it has not ported (several devices,
+output) and routes every other one to the device-operator or the
+host-assembled path, and its entry points run on the card unless the CPU
+is asked for (never falling back to it)."""
 
 import os
 import subprocess
@@ -51,15 +52,29 @@ def test_port_and_smoke_script_never_import_jax():
     dict(flag_compute_quadrupole=True), dict(device_operators="off"),
     dict(problem="Step16"), dict(write_vtu=True)])
 def test_out_of_slice_configs_raise(override):
+    """Several devices and output still raise; the other configurations
+    are accepted: the quadrupole keeps the float32 production run on the
+    device-operator path (its rule: float32, GaussianCharges, Q1, GMG),
+    the rest are routed to the host-assembled path."""
     cfg = production_scaling_config(1, dtype="float32").replace(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_slice(cfg)
+    if "n_devices" in override or "write_vtu" in override:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            check_slice(cfg)
+        return
+    check_slice(cfg)
+    sim = Simulation(cfg, atoms=nacl_lattice(1), device="cpu")
+    host_assembled = "flag_compute_quadrupole" not in override
+    assert sim.device_ops is not host_assembled
+    assert sim.use_tpu_cg == (cfg.dtype == "float32")
 
 
 def test_golden_host_path_is_not_the_slice():
-    with pytest.raises(NotImplementedError):
-        Simulation(golden_gaussian_config(), atoms=nacl_lattice(1),
-                   device="cpu")
+    """The golden configuration (float64) runs the host-assembled path with
+    the host-loop CG and the reference's SSOR smoother."""
+    sim = Simulation(golden_gaussian_config(), atoms=nacl_lattice(1),
+                     device="cpu")
+    assert not sim.device_ops and not sim.use_tpu_cg
+    assert sim.dtype == torch.float64 and sim.cfg.smoother == "ssor"
 
 
 def test_device_is_explicit():

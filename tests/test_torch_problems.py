@@ -51,3 +51,42 @@ def test_dipole_moment():
     q = rng.standard_normal(50)
     np.testing.assert_allclose(T.compute_dipole_moment(pos, q),
                                J.compute_dipole_moment(pos, q), rtol=1e-12)
+
+
+def test_step16_functions():
+    p = _points(6)
+    pt = t64(p)
+    np.testing.assert_array_equal(T.step16_rhs(pt).numpy(),
+                                  np.asarray(J.step16_rhs(jnp.asarray(p))))
+    inside = np.vstack([p, [[0.1, 0.2, 0.3], [0.0, 0.0, 0.49]]])
+    np.testing.assert_array_equal(
+        T.step16_coefficient(t64(inside)).numpy(),
+        np.asarray(J.step16_coefficient(jnp.asarray(inside))))
+    np.testing.assert_array_equal(
+        T.gaussian_coefficient(pt).numpy(),
+        np.asarray(J.gaussian_coefficient(jnp.asarray(p))))
+
+
+def test_analytic_solution_without_lammps_including_origin():
+    p = np.vstack([_points(7), np.zeros((1, 3))])
+    ref = np.asarray(J.analytic_solution_without_lammps(jnp.asarray(p), R_C))
+    out = T.analytic_solution_without_lammps(t64(p), R_C).numpy()
+    assert rel_err(out, ref) < 1e-12
+
+
+def test_quadrupole_moments():
+    from torch_parity import adaptive_forest
+    from coulomb_gmg_tpu_torch.ops.q1 import element_tables
+    rng = np.random.default_rng(8)
+    f = adaptive_forest(3, reps=4, cycles=1)
+    tab = element_tables(3, 1, 2)
+    rho = rng.standard_normal((f.n_cells, len(tab.points)))
+    ref = J.quadrupole_from_forest(f, tab.points, tab.weights, rho,
+                                   chunk=100)
+    out = T.quadrupole_from_forest(f, tab.points, tab.weights, rho,
+                                   chunk=100)
+    assert rel_err(out, ref) < 1e-12
+    pts = rng.standard_normal((5, 4, 3))
+    jxw, rq = rng.random((2, 5, 4))
+    assert rel_err(T.compute_quadrupole_moment(pts, jxw, rq),
+                   J.compute_quadrupole_moment(pts, jxw, rq)) < 1e-12
