@@ -37,25 +37,54 @@ Phases, in order; any failure raises and the script exits non-zero:
    density), ``production_scaling_config(10, dtype="float64",
    device_operators="off")``.  The published cells must come out exactly,
    every cycle at a true float64 residual of 1e-8 * ||b||, the solution
-   finite, the ELL kernel launched (float64 launches among them) and the
-   tile kernel not; it prints the CG counts, stage seconds, the SSOR
-   host seconds, the coarse CG iterations per V-cycle, the system ELL's K
-   and padding share and the peak device memory;
+   finite, the earlier runs' CG counts, the ELL kernel launched (float64
+   launches among them) and the tile kernel not; it prints the stage
+   seconds, the SSOR host seconds, the coarse CG iterations per V-cycle,
+   the system ELL's K and padding share and the peak device memory;
 7. the other two host-assembled routes at a smaller size:
    ``examples/step-16.prm`` in float32 (tile density, ``TpuGMG`` with
    ``solve_refined``) and the same file with the Jacobi preconditioner
    (``tpu_cg_solve``), cells and CG held to JAX CPU runs of the same
-   configurations.
+   configurations;
+8. the device-operator path in float64 at full width:
+   ``production_scaling_config(10, dtype="float64", device_operators="on",
+   solver_backend="tpu_cg")`` (the JAX eligibility needs ``use_tpu_cg``,
+   which ``"auto"`` gives only in float32): one GMG-CG at ``cg_rtol`` per
+   cycle, the float32 list density of the tpu_cg route.  The published
+   cells, a true float64 residual of 1.01e-8 * ||b|| every cycle, ELL
+   launches all float64 and no tile launch; it prints the CG counts,
+   stages and peak memory;
+9. several devices on the one card: 4 shards on ``cuda:0``.  First the
+   8,000-atom study in float64 through the SPMD path (sharded list density
+   and assembly, ``ShardedGMG``, sharded Kelly estimate): the published
+   cells, the true residual of phase 8, ELL launches; it prints the CG
+   counts, stages and peak memory.  Then cycle 0 of the same study in
+   float32 (the tile kernel once per shard, ``ShardedGMG`` without
+   iterative refinement, as in JAX): the published cells, a finite
+   solution; it prints the CG count and the true float64 residual, which
+   is not gated.  Then, at the cycle-0 shapes, the sharded tile density
+   must be ``torch.equal`` to the single-device tile kernel and the
+   sharded float32 FE error within rel 1e-6 of the single-device one,
+   each a kernel launch per shard;
+10. output: ``examples/step-16.prm`` in float32 with ``write_vtu`` for 2
+   cycles, and the 8-atom production configuration on 2 shards of
+   ``cuda:0`` for 1 cycle, into a temporary directory, parsed back: piece
+   counts, ``subdomain``, cells that partition the mesh, finite fields;
+   each run prints its CG counts and true residuals.
 
 The line before the last is the kernels' JSON record (launches summed over
-phases 4 to 7); the last line is ``{"ok": true, "device": {...}}``.
+phases 4 to 10); the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import base64
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import xml.etree.ElementTree as ET
+import zlib
 
 import numpy as np
 
@@ -68,6 +97,7 @@ REF_CELLS = [512000, 512560, 523592, 543024, 576428]   # bench.py:65-72
 # to ten digits across runs): a kernel change that keeps the arithmetic
 # must reproduce them.
 EARLIER_CG = [3, 5, 7, 8, 8]
+EARLIER_HOST_F64_CG = [1, 6, 7, 7, 8]       # phase 6's, in every run
 EARLIER_FE = [0.8200123289, 0.8031798466, 0.7377463069, 0.6519717620,
               0.5959950238]
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -534,7 +564,8 @@ def phase_host_f64():
     print(f"[host f64] system ELL float64 (last cycle): kernel {ms:.4f} ms, "
           f"max|err| {err:.3e}; {bound_text(b, ms)}", flush=True)
     cg = [r["cg_iterations"] for r in res]
-    print(f"[host f64] wall {wall:.2f} s; CG {cg}; launches {launches} "
+    print(f"[host f64] wall {wall:.2f} s; CG {cg} (earlier "
+          f"{EARLIER_HOST_F64_CG}); launches {launches} "
           f"(ELL float64 {f64}); SSOR {calls} applications on "
           f"{len(ssor)} levels: host solves {solve_s:.2f} s, copies "
           f"{copy_s:.2f} s; system ELL (last cycle) K={K} rows={n} nnz="
@@ -543,6 +574,9 @@ def phase_host_f64():
     cells = [r["n_cells"] for r in res]
     if cells != REF_CELLS:
         raise AssertionError(f"host f64: cells {cells} != {REF_CELLS}")
+    if cg != EARLIER_HOST_F64_CG:
+        raise AssertionError(f"host f64: CG {cg} != earlier runs' "
+                             f"{EARLIER_HOST_F64_CG}")
     for r in res:
         if not r["residual"] <= 1.01e-8 * r["l2_rhs"]:
             raise AssertionError(f"host f64 cycle {r['cycle']}: residual "
@@ -604,7 +638,247 @@ def phase_routes():
     return total
 
 
+def run_study(tag, cfg, **sim_kw):
+    """One 8,000-atom run through Simulation: prints every cycle and the
+    run's totals, checks the published cells and the true float64
+    residual; returns (sim, results, launches)."""
+    import torch
+    from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+    from coulomb_gmg_tpu_torch.utils.logging import Pcout
+    from coulomb_gmg_tpu_torch.driver import Simulation
+    from coulomb_gmg_tpu_torch.ops import ell
+    sim = Simulation(cfg, atoms=nacl_lattice(ATOMS_N), device="cuda",
+                     pcout=Pcout(enabled=False), **sim_kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = sim.run()
+    wall = time.time() - t0
+    launches = read_counts()
+    f64 = ell.ell_mv.launches_f64
+    for r in res:
+        coarse = (f" coarse CG per V-cycle {r['coarse_cg']}"
+                  if r["coarse_cg"] else "")
+        print(f"[{tag} cycle {r['cycle']}] cells {r['n_cells']} dofs "
+              f"{r['n_dofs']} cg {r['cg_iterations']} residual "
+              f"{r['residual']:.3e} (|b| {r['l2_rhs']:.6e}){coarse} s: "
+              f"{stage_text(r)}", flush=True)
+    cg = [r["cg_iterations"] for r in res]
+    print(f"[{tag}] wall {wall:.2f} s; CG {cg}; launches {launches} (ELL "
+          f"float64 {f64}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    cells = [r["n_cells"] for r in res]
+    if cells != REF_CELLS:
+        raise AssertionError(f"{tag}: cells {cells} != {REF_CELLS}")
+    for r in res:
+        if not r["residual"] <= 1.01e-8 * r["l2_rhs"]:
+            raise AssertionError(f"{tag} cycle {r['cycle']}: residual "
+                                 f"{r['residual']:.3e} > 1.01e-8 * |b|")
+        if not 1 <= r["cg_iterations"] <= 20:
+            raise AssertionError(f"{tag} cycle {r['cycle']}: CG "
+                                 f"{r['cg_iterations']} outside [1, 20]")
+    if not np.isfinite(sim.solution).all():
+        raise AssertionError(f"{tag}: non-finite solution")
+    return sim, res, launches, f64
+
+
+def phase_device_f64():
+    from coulomb_gmg_tpu_torch.config import production_scaling_config
+    from coulomb_gmg_tpu_torch.solver.device_gmg import StencilGMG
+    cfg = production_scaling_config(ATOMS_N, dtype="float64",
+                                    device_operators="on",
+                                    solver_backend="tpu_cg")
+    sim, res, launches, f64 = run_study("device f64", cfg)
+    if not (sim.device_ops and isinstance(sim.gmg, StencilGMG)
+            and sim.A is None):
+        raise AssertionError("device f64: not the device-operator path")
+    if not (launches["ell_spmv"] > 0 and f64 == launches["ell_spmv"]
+            and launches["tile_density"] == 0):
+        raise AssertionError(f"device f64: launch counts {launches}, "
+                             f"float64 ELL {f64}")
+    return launches
+
+
+def phase_multi_device():
+    import torch
+    from coulomb_gmg_tpu_torch.config import production_scaling_config
+    from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+    from coulomb_gmg_tpu_torch.ops import tile_density as td
+    from coulomb_gmg_tpu_torch.ops.gradient import exact_gradient
+    from coulomb_gmg_tpu_torch.ops.q1 import element_tables
+    from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
+    from coulomb_gmg_tpu_torch.postprocess.energy import energy_norm_error
+
+    D = 4
+    cfg = production_scaling_config(ATOMS_N, dtype="float64", n_devices=D)
+    sim, res, launches, _ = run_study(f"spmd x{D}", cfg,
+                                      spmd_devices=["cuda:0"] * D)
+    if sim.spmd is None or sim.spmd.D != D or sim.device_ops:
+        raise AssertionError("spmd: not the SPMD path")
+    if launches["ell_spmv"] <= 0:
+        raise AssertionError(f"spmd: launch counts {launches}")
+
+    # float32, cycle 0: ShardedGMG without iterative refinement, as in JAX,
+    # so CG stops on its recursive residual; the true one is printed, not
+    # gated.  The density is the tile kernel, one launch per shard.
+    from coulomb_gmg_tpu_torch.driver import Simulation
+    from coulomb_gmg_tpu_torch.utils.logging import Pcout
+    cfg32 = production_scaling_config(ATOMS_N, dtype="float32",
+                                      n_devices=D, n_adaptive_cycles=1)
+    sim32 = Simulation(cfg32, atoms=nacl_lattice(ATOMS_N), device="cuda",
+                       pcout=Pcout(enabled=False),
+                       spmd_devices=["cuda:0"] * D)
+    reset_counts()
+    t0 = time.time()
+    res32 = sim32.run()
+    wall32 = time.time() - t0
+    l32 = read_counts()
+    print(f"[spmd x{D} f32] wall {wall32:.2f} s; cells "
+          f"{res32[0]['n_cells']}; s: {stage_text(res32[0])}; launches "
+          f"{l32}", flush=True)
+    print_residuals(f"spmd x{D} f32", res32)
+    if not (sim32.dtype == torch.float32 and sim32.spmd is not None
+            and res32[0]["n_cells"] == REF_CELLS[0]
+            and l32["tile_density"] == D and l32["ell_spmv"] > 0
+            and np.isfinite(sim32.solution).all()):
+        raise AssertionError(f"spmd f32: cells {res32[0]['n_cells']}, "
+                             f"launches {l32}")
+    launches = {k: launches[k] + l32[k] for k in launches}
+
+    # the sharded kernels at the cycle-0 shapes against one device
+    ctx = SpmdContext(D, ["cuda:0"] * D)
+    atoms = nacl_lattice(ATOMS_N)
+    f = sim.make_initial_mesh()
+    cut = cfg.nonzero_radius * cfg.r_c
+    args = (f, sim.tab_rhs.points, atoms.positions, atoms.charges, cfg.r_c)
+    one = td.density_locality_tiles(*args, cut, "cuda", c_pad=f.n_cells)
+    before = td.tile_density.launches
+    t0 = time.time()
+    shards = ctx.density_tiles(*args, cut)
+    torch.cuda.synchronize()
+    s_td = time.time() - t0
+    n_td = td.tile_density.launches - before
+    if not torch.equal(shards, one) or n_td != D:
+        raise AssertionError(f"spmd density_tiles: equal "
+                             f"{torch.equal(shards, one)}, {n_td} launches")
+    tab = element_tables(3, 1, 2)
+    u = 0.01 * np.random.default_rng(7).standard_normal(f.dofs_of(1).n_dofs)
+    fe_args = (f, tab, u, atoms.positions, atoms.charges, cfg.r_c)
+    fe1 = energy_norm_error(*fe_args, "cuda", dtype=torch.float32)
+    before = exact_gradient.launches
+    fe_d = ctx.energy_norm_error(*fe_args, dtype=torch.float32)
+    n_gr = exact_gradient.launches - before
+    rel = abs(fe_d / fe1 - 1)
+    print(f"[spmd x{D}] cycle-0 shapes: sharded tile density == one device "
+          f"({n_td} launches, {s_td:.3f} s); sharded FE error {fe_d:.10e} vs "
+          f"{fe1:.10e} (rel {rel:.2e}, {n_gr} exact-gradient launches)",
+          flush=True)
+    if not (rel <= 1e-6 and n_gr >= D):
+        raise AssertionError(f"spmd energy_norm_error: rel {rel:.2e}, "
+                             f"{n_gr} launches")
+    return launches
+
+
+def print_residuals(tag, res):
+    """Every cycle's CG count and true float64 residual, for a run that
+    stops on CG's recursive residual (float32 without refinement, as the
+    JAX ShardedGMG does); only a finite residual is required."""
+    for r in res:
+        print(f"[{tag} cycle {r['cycle']}] cg {r['cg_iterations']} true "
+              f"residual {r['residual']:.3e} = "
+              f"{r['residual'] / r['l2_rhs']:.3e} |b|", flush=True)
+        if not np.isfinite(r["residual"]):
+            raise AssertionError(f"{tag} cycle {r['cycle']}: residual "
+                                 f"{r['residual']}")
+
+
+def read_vtu(path):
+    """(NumberOfCells, {array name: values}) of a VTU piece."""
+    root = ET.parse(path).getroot()
+    types = {"Float64": np.float64, "Int64": np.int64, "UInt8": np.uint8}
+    arrays = {}
+    for da in root.iter("DataArray"):
+        text = da.text.strip()
+        raw = zlib.decompress(base64.b64decode(text[44:]))
+        arrays[da.get("Name") or "Points"] = np.frombuffer(
+            raw, types[da.get("type")])
+    return int(root.find(".//Piece").get("NumberOfCells")), arrays
+
+
+def check_output(tag, out_dir, res, D):
+    """Every cycle's pieces, PVTU and VisIt record parse back: D pieces
+    whose cells partition the mesh, ``subdomain`` = the piece's shard,
+    finite fields."""
+    for r in res:
+        base = os.path.join(out_dir, f"solution-{r['cycle']:05d}")
+        pieces = [f"{base}.{d:04d}.vtu" for d in range(D)]
+        pvtu = ET.parse(base + ".pvtu").getroot()
+        listed = [p.get("Source") for p in pvtu.iter("Piece")]
+        if listed != [os.path.basename(p) for p in pieces]:
+            raise AssertionError(f"{tag}: PVTU lists {listed}")
+        if open(base + ".visit").readline().strip() != f"!NBLOCKS {D}":
+            raise AssertionError(f"{tag}: VisIt record")
+        total = 0
+        for d, p in enumerate(pieces):
+            n, arrays = read_vtu(p)
+            total += n
+            if not (arrays["subdomain"] == d).all():
+                raise AssertionError(f"{tag}: {p} subdomain")
+            for k, v in arrays.items():
+                if v.dtype == np.float64 and not np.isfinite(v).all():
+                    raise AssertionError(f"{tag}: {p} {k} not finite")
+        if total != r["n_cells"]:
+            raise AssertionError(f"{tag}: pieces hold {total} cells, the "
+                                 f"mesh {r['n_cells']}")
+        print(f"[output {tag}] cycle {r['cycle']}: {D} pieces, {total} "
+              f"cells, arrays {sorted(arrays)}", flush=True)
+
+
+def phase_output():
+    from coulomb_gmg_tpu_torch.config import (load_prm,
+                                              production_scaling_config)
+    from coulomb_gmg_tpu_torch.io.lammps import read_lammps_file
+    from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+    from coulomb_gmg_tpu_torch.utils.logging import Pcout
+    from coulomb_gmg_tpu_torch.driver import Simulation
+
+    total = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        d1 = os.path.join(tmp, "step16")
+        os.makedirs(d1)
+        cfg = load_prm(os.path.join(ROOT, "examples", "step-16.prm"),
+                       dtype="float32", smoother="mc_ssor",
+                       n_adaptive_cycles=2, write_vtu=True, output_dir=d1)
+        atoms = read_lammps_file(os.path.join(ROOT, cfg.lammps_file))
+        runs.append(("step16 f32", d1, 1, Simulation(
+            cfg, atoms=atoms, device="cuda", pcout=Pcout(enabled=False))))
+        d2 = os.path.join(tmp, "spmd")
+        os.makedirs(d2)
+        cfg = production_scaling_config(1, dtype="float32", n_devices=2,
+                                        n_adaptive_cycles=1, write_vtu=True,
+                                        output_dir=d2)
+        runs.append(("8 atoms x2", d2, 2, Simulation(
+            cfg, atoms=nacl_lattice(1), device="cuda",
+            pcout=Pcout(enabled=False), spmd_devices=["cuda:0"] * 2)))
+        for tag, out_dir, D, sim in runs:
+            reset_counts()
+            t0 = time.time()
+            res = sim.run()
+            launches = read_counts()
+            for k in KERNELS:
+                total[k] += launches[k]
+            print(f"[output {tag}] wall {time.time() - t0:.2f} s; cells "
+                  f"{[r['n_cells'] for r in res]}; output "
+                  f"{sum(r['stages'].get('Output', 0.0) for r in res):.2f} s;"
+                  f" launches {launches}", flush=True)
+            print_residuals(f"output {tag}", res)
+            check_output(tag, out_dir, res, D)
+    return total
+
+
 def main():
+    t0 = time.time()
     smi = phase_device()
     import torch
     phase_build()
@@ -613,19 +887,24 @@ def main():
     main5 = phase_bruteforce_fe()
     main6 = phase_host_f64()
     main7 = phase_routes()
+    main8 = phase_device_f64()
+    main9 = phase_multi_device()
+    main10 = phase_output()
     replaces = {"tile_density": "coulomb_gmg_tpu/ops/tile_density.py:179",
                 "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
                 "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45"}
-    # launches: the sum over the main-path runs (phases 4 to 7)
+    # launches: the sum over the main-path runs (phases 4 to 10)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"coulomb_gmg_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name],
-         "launches": sum(m[name] for m in (main4, main5, main6, main7)),
+         "launches": sum(m[name] for m in (main4, main5, main6, main7,
+                                           main8, main9, main10)),
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
                      "exact_gradient")]}
+    print(f"[smoke] total {time.time() - t0:.1f} s", flush=True)
     print(smi)
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

@@ -1,35 +1,42 @@
 """Simulation driver of the PyTorch port: the adaptive cycle.
 
-Counterpart of coulomb_gmg_tpu/driver.py on one device.  Per adaptive
-cycle: mesh (generate, or refine and transfer), setup (constraints,
-locality, densities, moments), assembly, GMG or Jacobi CG solve, Kelly
-estimate and marking, and the energy postprocess, with the reference's log
-lines (src/step-50.cc:104-178, 1464-1573).  Two operator paths, chosen as
-the JAX driver chooses them:
+Counterpart of coulomb_gmg_tpu/driver.py.  Per adaptive cycle: mesh
+(generate, or refine and transfer), setup (constraints, locality,
+densities, moments), assembly, GMG or Jacobi CG solve, Kelly estimate and
+marking, output, and the energy postprocess, with the reference's log
+lines (src/step-50.cc:104-178, 1464-1573).  Three operator paths, chosen as
+the JAX driver chooses them (its ``device_ops_active``, ``use_tpu_cg`` and
+``spmd``; the port's device plays the JAX ``tpu_device``):
 
-* **device operators** (``Simulation.device_ops``: float32,
-  GaussianCharges with atoms, 3D, Q1, GMG, ``device_operators != "off"``;
-  the production configuration, config.py:production_scaling_config): the
-  density by the tile kernel (ops/tile_density.py) or, without the
-  locality flag, the dense kernel (ops/density.py); the float64 RHS and GMG
-  operators built on the device (solver/device_gmg.py); float32 GMG-CG
-  with a matrix-free system matvec inside iterative refinement to a true
-  float64 ``cg_rtol * ||b||`` (solver/gmg.py);
-* **host-assembled** (everything else: float64, Step16, ``degree > 1``,
-  ``device_operators="off"``, the analytic RHS, Jacobi, dim 2): the CSR
-  system and the level matrices assembled on the host (fem/assembly.py,
+* **device operators** (:meth:`Simulation.device_ops_active`:
+  GaussianCharges, Q1, GMG, unit coefficient, one device and ``use_tpu_cg``;
+  ``device_operators="on"`` in either precision, ``"auto"`` in float32, the
+  production configuration, config.py:production_scaling_config): the RHS
+  and the GMG operators built on the device (solver/device_gmg.py), GMG-CG
+  with a matrix-free system matvec (solver/gmg.py): inside iterative
+  refinement to a true float64 ``cg_rtol * ||b||`` for float32 with
+  ``cg_rtol < 5e-7``, else one solve at ``cg_rtol``;
+* **host-assembled** (everything else on one device): the CSR system and
+  the level matrices assembled on the host (fem/assembly.py,
   solver/multigrid.py) and applied on the device through the ELL kernel
-  (ops/spmv.py), solved by one of three routes (:meth:`Simulation.solve`):
-  ``TpuGMG`` with ``solve_refined`` or ``tpu_cg_solve`` (``use_tpu_cg``:
-  ``solver_backend="tpu_cg"``, or ``"auto"`` in float32), else the host-loop
-  ``cg`` with ``GMGPreconditioner`` (the reference's SSOR smoother by
-  default) or Jacobi.  Float64 densities come from the mask and list
-  branches of ops/density.py:compute_density, float32 ones from the
-  kernels.
+  (ops/spmv.py), solved by ``TpuGMG`` with ``solve_refined`` or
+  ``tpu_cg_solve`` (``use_tpu_cg``: ``solver_backend="tpu_cg"``, or
+  ``"auto"`` in float32), else the host-loop ``cg`` with
+  ``GMGPreconditioner`` (the reference's SSOR smoother by default) or
+  Jacobi;
+* **SPMD** (``n_devices > 1``, parallel/): the host-assembled system with
+  the density, assembly, Kelly estimate, FE error and energy sharded over
+  contiguous SFC cell blocks (parallel/spmd.py), solved by ``ShardedGMG``
+  or the sharded Jacobi-CG (parallel/sharded_gmg.py, parallel/sharded.py).
+  ``Simulation(spmd_devices=...)`` names each shard's device.
 
-Mesh, DoF and constraint topology stays on the host, in the package's
-numpy modules (mesh/, fem/, adapt/transfer.py).  Output (``write_vtu``) and
-several devices raise NotImplementedError; ROADMAP.md lists them.
+Float32 densities come from the tile kernel (``density_tiles``) or the
+dense kernel (no locality flag), float64 ones and ``density_tiles=False``
+from the mask and list branches of ops/density.py:compute_density.  Mesh,
+DoF and constraint topology stays on the host, in the package's numpy
+modules (mesh/, fem/, adapt/transfer.py).  ``write_vtu`` writes one VTU
+piece per shard, a PVTU and a VisIt record per cycle (io/vtu.py), and the
+gnuplot grid scripts in 2D (io/gnuplot.py).
 """
 
 from __future__ import annotations
@@ -52,7 +59,11 @@ from coulomb_gmg_tpu_torch.fem.constraints import (build_constraints,
                                                    distribute, set_zero)
 from coulomb_gmg_tpu_torch.fem.integrals import (rhs_cells_np,
                                                  stiffness_cells_np)
+from coulomb_gmg_tpu_torch.io.gnuplot import grid_output_debug
 from coulomb_gmg_tpu_torch.io.lammps import AtomData, read_lammps_file
+from coulomb_gmg_tpu_torch.io.vtu import (nodal_gradient, write_pvtu,
+                                          write_visit_record, write_vtu)
+from coulomb_gmg_tpu_torch.mesh.dofs import restrict_to_vertices
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch.ops.q1 import element_tables
 from coulomb_gmg_tpu_torch.utils.logging import Pcout, sci10, fix10
@@ -65,6 +76,11 @@ from coulomb_gmg_tpu_torch.ops.neighbors import atom_lists
 from coulomb_gmg_tpu_torch.ops.smoothers import make_jacobi
 from coulomb_gmg_tpu_torch.ops.spmv import CSR
 from coulomb_gmg_tpu_torch.ops.tile_density import density_locality_tiles
+from coulomb_gmg_tpu_torch.parallel.sharded import (
+    ShardedCSR, make_sharded_solver, put_blocks, shard_vector, sharded_diag)
+from coulomb_gmg_tpu_torch.parallel.sharded_gmg import ShardedGMG
+from coulomb_gmg_tpu_torch.parallel.spmd import (SpmdContext,
+                                                 electrostatic_energy_spmd)
 from coulomb_gmg_tpu_torch.postprocess.energy import (electrostatic_energy,
                                                       energy_norm_error)
 from coulomb_gmg_tpu_torch.solver.cg import cg
@@ -75,29 +91,16 @@ from coulomb_gmg_tpu_torch.solver.tpu_cg import tpu_cg_solve
 from coulomb_gmg_tpu_torch.solver.tpu_gmg import TpuGMG, solve_refined
 
 
-def check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError for a configuration the port cannot run."""
-    unsupported = {
-        "n_devices > 1": cfg.n_devices != 1,
-        "write_vtu (output)": cfg.write_vtu,
-    }
-    bad = [name for name, hit in unsupported.items() if hit]
-    if bad:
-        raise NotImplementedError(
-            "coulomb_gmg_tpu_torch runs one device without output; "
-            f"not ported yet: {', '.join(bad)} (see ROADMAP.md, Queue 1)")
-
-
 class Simulation:
-    """One adaptive simulation on one device (the reference's
-    LaplaceProblem).
+    """One adaptive simulation (the reference's LaplaceProblem).
 
     ``device`` defaults to "cuda", the hand kernels on the card, and
-    raises without one; "cpu" runs their plain PyTorch versions (tests)."""
+    raises without one; "cpu" runs their plain PyTorch versions (tests).
+    With ``n_devices > 1``, ``spmd_devices`` lists the shards' devices
+    (default: one visible CUDA device per shard, parallel/spmd.py)."""
 
     def __init__(self, cfg: Config, atoms: AtomData = None, device="cuda",
-                 pcout=None):
-        check_slice(cfg)
+                 pcout=None, spmd_devices=None):
         self.device = resolve(device)
         self.cfg = cfg
         self.pcout = pcout or Pcout()
@@ -119,22 +122,23 @@ class Simulation:
         self.lammpsinput = atoms.has_atoms
         if self.lammpsinput:
             self.pcout(f"Number of atoms: {self.atoms.n}")
-        self.device_ops = (cfg.device_operators != "off"
-                           and self.dtype == torch.float32
-                           and cfg.problem == "GaussianCharges"
-                           and cfg.degree == 1 and cfg.dim == 3
-                           and cfg.preconditioner == "GMG"
-                           and self.lammpsinput)
         self.use_tpu_cg = (cfg.solver_backend == "tpu_cg" or
                            (cfg.solver_backend == "auto"
                             and self.dtype == torch.float32))
+        self.spmd = None
+        if cfg.n_devices > 1:
+            self.spmd = SpmdContext(cfg.n_devices, spmd_devices)
+            self.use_tpu_cg = False
+        self.device_ops = self.device_ops_active()
         self.forest: Forest = None
         self.solution = None
         self.flags = None
-        self.mask = None             # (cells, atoms) locality (float64, <= 64)
-        self.lists = None            # (cells, K) atom lists (float64, > 64)
+        self.mask = None             # (cells, atoms) locality (<= 64 atoms)
+        self.lists = None            # (cells, K) atom lists (> 64 atoms)
         self.error_per_cell = None
-        self.gmg = None              # StencilGMG or GMGPreconditioner
+        self.gmg = None              # StencilGMG, level GMG or ShardedGMG
+        self.A = None                # the assembled system (host path)
+        self.cg_passes = None        # CG iterations per refinement pass
         self._face_plan = None
         self._stencil_cache = {}
         self._gmg_cache = {}
@@ -203,26 +207,68 @@ class Simulation:
         """The (n_cells, n_q) density as numpy."""
         return self.rho[: self.forest.n_cells].cpu().numpy()
 
+    def device_ops_active(self) -> bool:
+        """Device-operator mode (solver/device_gmg.py), the eligibility of
+        the JAX driver's ``device_ops_active``: "off" never, "on" whenever
+        the stencil form can express the operator, "auto" then only in
+        float32 (the port's device plays the JAX ``tpu_device``)."""
+        cfg = self.cfg
+        eligible = (cfg.problem == "GaussianCharges" and cfg.degree == 1
+                    and cfg.preconditioner == "GMG" and self.spmd is None
+                    and self.use_tpu_cg and self.coeff_fn() is None)
+        if cfg.device_operators == "off":
+            return False
+        if cfg.device_operators == "on":
+            return eligible
+        return eligible and self.dtype == torch.float32
+
+    def _tiles(self) -> bool:
+        """The single-device float32 locality density by the tile kernel
+        (``density_tiles``; the JAX driver's ``use_tiles`` without its TPU
+        placement floors)."""
+        cfg = self.cfg
+        return (self.spmd is None and self.dtype == torch.float32
+                and cfg.flag_rhs_assembly and cfg.density_tiles)
+
     # -------------------------------------------------------------- setup
 
     def _density(self):
         """(n_cells + 1, n_q) density on the device (last row zero)."""
         cfg, f, at = self.cfg, self.forest, self.atoms
         c_pad = f.n_cells + 1
-        if self.dtype == torch.float32:
-            if cfg.flag_rhs_assembly:
-                return density_locality_tiles(
-                    f, self.tab_rhs.points, at.positions, at.charges,
-                    cfg.r_c, cfg.nonzero_radius * cfg.r_c, self.device,
-                    c_pad=c_pad)
+        cut = cfg.nonzero_radius * cfg.r_c
+        mask = self.mask if cfg.flag_rhs_assembly else None
+        lists = self.lists if cfg.flag_rhs_assembly else None
+        if self.spmd is not None:
+            # the tile kernel per shard for float32 with locality lists,
+            # else the mask, list or all-atom branch per shard
+            if (cfg.density_tiles and cfg.flag_rhs_assembly
+                    and self.lists is not None
+                    and self.dtype == torch.float32):
+                rho = self.spmd.density_tiles(f, self.tab_rhs.points,
+                                              at.positions, at.charges,
+                                              cfg.r_c, cut)
+            else:
+                rho = self.spmd.density(f, self.tab_rhs.points,
+                                        at.positions, at.charges, cfg.r_c,
+                                        mask=mask, lists=lists,
+                                        dtype=self.dtype)
+            rho = rho.to(self.device)
+            return torch.cat([rho, rho.new_zeros(1, rho.shape[1])])
+        if self._tiles():
+            return density_locality_tiles(
+                f, self.tab_rhs.points, at.positions, at.charges, cfg.r_c,
+                cut, self.device, c_pad=c_pad)
+        if self.dtype == torch.float32 and not cfg.flag_rhs_assembly:
             return density_bruteforce(f, self.tab_rhs.points, at.positions,
                                       at.charges, cfg.r_c, self.device,
                                       c_pad=c_pad)
-        rho = compute_density(
-            f, self.tab_rhs.points, at.positions, at.charges, cfg.r_c,
-            self.device,
-            mask=self.mask if cfg.flag_rhs_assembly else None,
-            lists=self.lists if cfg.flag_rhs_assembly else None)
+        # runs of the tpu_cg route evaluate it in float32 in either
+        # precision, as the JAX driver does; every other run in float64
+        dt = torch.float32 if self.use_tpu_cg else torch.float64
+        rho = compute_density(f, self.tab_rhs.points, at.positions,
+                              at.charges, cfg.r_c, self.device, mask=mask,
+                              lists=lists, dtype=dt)
         return torch.cat([rho, rho.new_zeros(1, rho.shape[1])])
 
     def setup(self):
@@ -231,9 +277,9 @@ class Simulation:
         with self._stage("Setup system"):
             dofs = f.dofs_of(cfg.degree)
         if self.lammpsinput:
-            # float64 densities use the locality of the JAX host path:
-            # a dense mask up to 64 atoms, padded lists above
-            if (self.dtype == torch.float64 and cfg.flag_rhs_assembly
+            # the locality of the JAX host path: a dense mask up to 64
+            # atoms, padded lists above (the tile plan makes its own)
+            if (cfg.flag_rhs_assembly and not self._tiles()
                     and self.mask is None and self.lists is None):
                 with self._stage("RHS assembly optimization"):
                     cut = cfg.nonzero_radius * cfg.r_c
@@ -272,7 +318,9 @@ class Simulation:
             with self._stage("Assemble Multigrid"):
                 self.gmg = StencilGMG(f, f.dofs_of(1), self.constraints,
                                       self.device, self.dtype,
-                                      cache=self._stencil_cache)
+                                      cache=self._stencil_cache,
+                                      coarse_maxiter=cfg.coarse_max_iters,
+                                      coarse_rtol=cfg.coarse_rtol)
             with self._stage("Assemble system"):
                 self.rhs = self.gmg.assemble_rhs(self.rho.to(self.device),
                                                  self.tab_rhs)
@@ -285,10 +333,20 @@ class Simulation:
             if self.coeff_fn() is not None:
                 pts = cell_quad_points(f, self.tab_lap.points)
                 coeff_q = self.coeff_fn()(torch.from_numpy(pts)).numpy()
-            K = stiffness_cells_np(self.tab_lap, h, coeff_q, dtype=np_dtype)
-            Fv = rhs_cells_np(self.tab_rhs, h, self.rho_host(),
-                              dtype=np_dtype)
-            data, rhs = assemble_np(self.plan, K, Fv, dtype=np_dtype)
+            if self.spmd is not None:
+                # per-shard element tensors, gathered into the CSR slots
+                # and summed over the shards (the compress of
+                # src/step-50.cc:831-832)
+                asm = self.spmd.build_assembler(
+                    self.plan, self.tab_lap, self.tab_rhs,
+                    has_coeff=coeff_q is not None, np_dtype=np_dtype)
+                data, rhs = asm(h, coeff_q, self.rho_host())
+            else:
+                K = stiffness_cells_np(self.tab_lap, h, coeff_q,
+                                       dtype=np_dtype)
+                Fv = rhs_cells_np(self.tab_rhs, h, self.rho_host(),
+                                  dtype=np_dtype)
+                data, rhs = assemble_np(self.plan, K, Fv, dtype=np_dtype)
             self.A = CSR.from_pattern(self.plan.pattern.indptr,
                                       self.plan.pattern.indices, data,
                                       device=self.device)
@@ -299,11 +357,13 @@ class Simulation:
         if self.device_ops:
             return                  # StencilGMG was built with the system
         with self._stage("Assemble Multigrid"):
-            # TpuGMG builds its own (Chebyshev) smoothers from the levels
+            # TpuGMG and ShardedGMG build their own (Chebyshev) smoothers
+            # from the levels
+            host_smoother = not self.use_tpu_cg and self.spmd is None
             self.gmg = build_gmg(
                 self.forest, self.forest.dofs_of(cfg.degree), self.tab_lap,
                 coeff_fn=self.coeff_fn(),
-                smoother="none" if self.use_tpu_cg else cfg.smoother,
+                smoother=cfg.smoother if host_smoother else "none",
                 smoother_damping=cfg.smoother_damping,
                 smoother_steps=cfg.smoother_steps,
                 coarse_tol=cfg.coarse_tol,
@@ -311,6 +371,12 @@ class Simulation:
                 jacobi_damping=cfg.jacobi_damping,
                 coarse_rtol=cfg.coarse_rtol, cache=self._gmg_cache,
                 device=self.device)
+            if self.spmd is not None:
+                # the per-shard level operators and halo plans, with
+                # ShardedGMG's own defaults for the coarse CG
+                self.gmg = ShardedGMG(self.gmg, self.A, self.spmd,
+                                      dtype=self.dtype,
+                                      maxiter=cfg.cg_max_iters)
 
     # -------------------------------------------------------------- solve
 
@@ -346,15 +412,7 @@ class Simulation:
     def solve(self):
         with self._stage("Solve"):
             if self.device_ops:
-                g = self.gmg
-                b = self.rhs[: g.n].cpu().numpy()
-                x0 = (self.solution if self.solution is not None
-                      and len(self.solution) == g.n else None)
-                x, k, res0, resf, self.cg_passes = solve_refined_device(
-                    g, x0, rtol=self.cfg.cg_rtol,
-                    maxiter=self.cfg.cg_max_iters)
-                self.residual = float(resf)
-                self._log_solve(b, x, k, res0, resf)
+                self._solve_device_ops()
                 return
             x, k, res0, resf = self._solve_assembled()
             self.cg_passes = None
@@ -374,14 +432,45 @@ class Simulation:
                    "fro_mat": float(np.sqrt((absd ** 2).sum()))}
             self._log_solve(np.asarray(self.rhs), x, k, res0, resf, mat)
 
+    def _solve_device_ops(self):
+        """The device-operator solve (the JAX driver's solve,
+        driver.py:479-509): iterative refinement against the float64 RHS
+        for float32 below the float32 CG floor (``cg_rtol < 5e-7``), else
+        one GMG-CG at ``cg_rtol``; the true float64 residual either way."""
+        cfg, g = self.cfg, self.gmg
+        b = self.rhs[: g.n].cpu().numpy()
+        x0 = (self.solution if self.solution is not None
+              and len(self.solution) == g.n else None)
+        if self.dtype == torch.float32 and cfg.cg_rtol < 5e-7:
+            x, k, res0, resf, self.cg_passes = solve_refined_device(
+                g, x0, rtol=cfg.cg_rtol, maxiter=cfg.cg_max_iters)
+            self.residual = float(resf)
+        else:
+            b64 = g.b64
+            x0w = torch.zeros_like(b64)
+            if x0 is not None:
+                x0w[: g.n] = torch.from_numpy(np.asarray(x0, np.float64)).to(
+                    b64.device)
+            xw, k, res0, resf = g.solve(
+                b64.to(g.dtype), x0w.to(g.dtype), rtol=cfg.cg_rtol,
+                maxiter=cfg.cg_max_iters,
+                rhs_norm=float(torch.linalg.vector_norm(b64)))
+            x64 = xw.to(torch.float64)
+            self.residual = float(torch.linalg.vector_norm(g.defect64(x64)))
+            x = x64[: g.n].cpu().numpy()
+            self.cg_passes = [k]
+        self._log_solve(b, x, k, res0, resf)
+
     def _solve_assembled(self):
-        """The three routes of the host-assembled system (the JAX driver's
-        solve, src/step-50.cc:938-1017).  Returns (x float64 numpy,
-        iterations, |r0|, |r|)."""
+        """The routes of the host-assembled system (the JAX driver's solve,
+        src/step-50.cc:938-1017).  Returns (x float64 numpy, iterations,
+        |r0|, |r|)."""
         cfg = self.cfg
         rhs = np.asarray(self.rhs)
         x0 = (self.solution if self.solution is not None
               and len(self.solution) == self.A.n_rows else None)
+        if self.spmd is not None:
+            return self._solve_spmd(rhs, x0)
         if self.use_tpu_cg and cfg.preconditioner == "GMG":
             g = TpuGMG(self.gmg, self.A, self.forest, self.device,
                        dtype=self.dtype,
@@ -413,6 +502,29 @@ class Simulation:
         return (res.x.cpu().numpy().astype(np.float64), res.iterations,
                 res.initial_residual, res.final_residual)
 
+    def _solve_spmd(self, rhs, x0):
+        """The SPMD solve (the JAX driver's driver.py:543-584): ShardedGMG
+        for GMG, the sharded Jacobi-CG otherwise (src/step-50.cc:996-1005)."""
+        cfg, spmd = self.cfg, self.spmd
+        if cfg.preconditioner == "GMG":
+            return self.gmg.solve(rhs, x0, rtol=cfg.cg_rtol)
+        np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        As = ShardedCSR.from_coo(self.A.rowids, self.A.indices,
+                                 self.A.data_np().astype(np_dtype),
+                                 self.A.n_rows, spmd.D)
+        solver = make_sharded_solver(spmd, As, sharded_diag(As, spmd.D),
+                                     tol_rtol=cfg.cg_rtol,
+                                     maxiter=cfg.cg_max_iters * 10,
+                                     damping=cfg.jacobi_damping)
+        rhs_b = put_blocks(shard_vector(np.asarray(rhs, np_dtype), spmd.D),
+                           spmd)
+        x0_b = (put_blocks(shard_vector(np.asarray(x0, np_dtype), spmd.D),
+                           spmd) if x0 is not None
+                else [torch.zeros_like(r) for r in rhs_b])
+        xb, k, res0, resf = solver(rhs_b, x0_b)
+        x = torch.cat([v.cpu() for v in xb]).numpy()[: self.A.n_rows]
+        return x.astype(np.float64), k, res0, resf
+
     # --------------------------------------------------------- adaptivity
 
     def estimate_and_mark(self):
@@ -420,14 +532,23 @@ class Simulation:
         with self._stage("Estimate error and mark cells"):
             if self._face_plan is None:
                 self._face_plan = build_face_plan(self.forest)
-            rho_q = self.rho_host() if cfg.estimator_volume_term else None
-            err = estimate(self.forest,
-                           self.forest.dofs_of(cfg.degree).cell2dof,
-                           np.asarray(self.solution), rho_q,
-                           self.tab_rhs.points, self.tab_rhs.weights,
-                           degree=cfg.degree,
-                           use_volume_term=cfg.estimator_volume_term,
-                           plan=self._face_plan)
+            cell2dof = self.forest.dofs_of(cfg.degree).cell2dof
+            if (self.spmd is not None and not cfg.estimator_volume_term
+                    and cfg.degree == 1):
+                # Kelly face jumps sharded over the shards
+                # (src/step-50.cc:1020-1090)
+                err = self.spmd.estimate(self.forest, cell2dof,
+                                         np.asarray(self.solution),
+                                         plan=self._face_plan)
+            else:
+                rho_q = (self.rho_host() if cfg.estimator_volume_term
+                         else None)
+                err = estimate(self.forest, cell2dof,
+                               np.asarray(self.solution), rho_q,
+                               self.tab_rhs.points, self.tab_rhs.weights,
+                               degree=cfg.degree,
+                               use_volume_term=cfg.estimator_volume_term,
+                               plan=self._face_plan)
             self.error_per_cell = err
             self.flags, self.threshold = mark_cells(
                 err, cfg.refine_fraction_of_max)
@@ -438,9 +559,15 @@ class Simulation:
 
     def postprocess_energy(self):
         with self._stage("Postprocess electrostatic energy"):
-            e = electrostatic_energy(self.forest, self.solution,
-                                     self.atoms.positions, self.atoms.charges,
-                                     self.cfg.r_c, degree=self.cfg.degree)
+            args = (self.forest, self.solution, self.atoms.positions,
+                    self.atoms.charges, self.cfg.r_c)
+            if self.spmd is not None:
+                # each atom evaluated by the shard that owns its cell
+                # (src/step-50.cc:1334-1398)
+                e = electrostatic_energy_spmd(self.spmd, *args,
+                                              degree=self.cfg.degree)
+            else:
+                e = electrostatic_energy(*args, degree=self.cfg.degree)
         pc = self.pcout
         pc("\nTotal analytical electrostatic energy :   " + sci10(e["analytic"]))
         pc("Short-ranged energy contribution :  " + sci10(e["short_range"]))
@@ -461,12 +588,64 @@ class Simulation:
         with self._stage("Postprocess FE error"):
             # float32 runs: the exact-gradient kernel; float64 runs: its
             # plain version in float64 (the JAX package's float64 path)
-            err = energy_norm_error(self.forest, self.tab_lap, self.solution,
-                                    self.atoms.positions, self.atoms.charges,
-                                    self.cfg.r_c, self.device,
-                                    dtype=self.dtype)
+            args = (self.forest, self.tab_lap, self.solution,
+                    self.atoms.positions, self.atoms.charges, self.cfg.r_c)
+            if self.spmd is not None:
+                err = self.spmd.energy_norm_error(*args, dtype=self.dtype)
+            else:
+                err = energy_norm_error(*args, self.device, dtype=self.dtype)
         self.pcout("Error in FE solution in energy norm:  " + sci10(err))
         return err
+
+    def output_results(self, cycle: int):
+        """VTU / PVTU / VisIt output of one cycle (src/step-50.cc:1149-1308,
+        the JAX driver's ``output_results``); the optional fields follow
+        the reference's flags.  One VTU piece per shard, with the shard's
+        own cells."""
+        cfg = self.cfg
+        f = self.forest
+        pos = f.dofs.positions
+        t64 = lambda a: torch.from_numpy(np.asarray(a, np.float64))
+        # vertex-based: higher-degree solutions are restricted to their
+        # vertex values
+        u_vtx = restrict_to_vertices(f, f.dofs_of(cfg.degree), self.solution)
+        point_data = {"solution": u_vtx, "grad_phi": nodal_gradient(f, u_vtx)}
+        few_atoms = self.lammpsinput and self.atoms.n < 10
+        if cfg.flag_analytical_solution and cfg.problem == "GaussianCharges":
+            if few_atoms:
+                point_data["Analytical_Solution_atoms"] = P.analytic_solution(
+                    t64(pos), t64(self.atoms.positions),
+                    t64(self.atoms.charges), cfg.r_c).numpy()
+            elif not self.lammpsinput:
+                point_data["Analytical_Solution_without_lammps"] = \
+                    P.analytic_solution_without_lammps(t64(pos),
+                                                       cfg.r_c).numpy()
+        if cfg.flag_rhs_field and few_atoms:
+            point_data["interpolated_rhs"] = (
+                P.gaussian_rhs(t64(pos), cfg.r_c)
+                if cfg.problem == "GaussianCharges"
+                else P.step16_rhs(t64(pos))).numpy()
+        owners = (self.spmd.owners(f.n_cells) if self.spmd is not None
+                  else np.zeros(f.n_cells, np.int32))
+        cell_data = {"subdomain": owners.astype(np.float64)}
+        if self.error_per_cell is not None and \
+                len(self.error_per_cell) == f.n_cells:
+            cell_data["error_indicator"] = self.error_per_cell
+        if cfg.flag_atoms_support and self.lammpsinput and \
+                cfg.flag_rhs_assembly and self.mask is not None:
+            for i in range(self.atoms.n):
+                cell_data[f"support_{i}"] = self.mask[:, i].astype(np.float64)
+        base = os.path.join(cfg.output_dir, f"solution-{cycle:05d}")
+        D = self.spmd.D if self.spmd is not None else 1
+        pieces = []
+        for d in range(D):
+            piece = f"{base}.{d:04d}.vtu"
+            cells = np.where(owners == d)[0] if D > 1 else None
+            write_vtu(piece, f, point_data, cell_data, cells=cells)
+            pieces.append(piece)
+        write_pvtu(f"{base}.pvtu", pieces, point_names=list(point_data),
+                   cell_names=list(cell_data))
+        write_visit_record(f"{base}.visit", pieces)
 
     def refine(self):
         cfg = self.cfg
@@ -521,11 +700,20 @@ class Simulation:
             by_level = ", ".join(str(ld.n_dofs) for ld in dofs.levels)
             pc(f"   Number of degrees of freedom: {dofs.n_dofs} "
                f"(by level: {by_level})")
+            if cfg.dim == 2 and cfg.write_vtu:
+                # the 2D grid scripts of src/step-50.cc:1542-1543, under
+                # the same switch as the VTU output
+                with self._stage("Output"):
+                    grid_output_debug(self.forest, self.mask, cycle, cfg.dim,
+                                      cfg.output_dir)
             self.assemble_system()
             if cfg.preconditioner == "GMG":
                 self.assemble_multigrid()
             self.solve()
             self.estimate_and_mark()
+            if cfg.write_vtu:
+                with self._stage("Output"):
+                    self.output_results(cycle)
             cyc = {
                 "cycle": cycle,
                 "n_cells": self.forest.n_cells,

@@ -10,9 +10,10 @@ cell loop + ``ConstraintMatrix::distribute_local_to_global`` + Trilinos
   cells (no constrained dof) are never materialized as scatter triples,
   their cross products are generated inside the native pattern engine
   (``csrc/forest_engine.cpp:cgmg_pattern``);
-* **execute:** batched element tensors and two scatter-adds, on the host
-  (:func:`assemble_np`, the driver's path, as in the JAX driver) or on a
-  torch device (:func:`assemble`).
+* **execute:** batched element tensors and two scatter-adds on the host
+  (:func:`assemble_np`, the driver's path, as in the JAX driver); the
+  sharded assembly (parallel/spmd.py) sums the same plan's entries on the
+  shards' devices by gather (:func:`gather_sum`).
 
 deal.II semantics exactly:
 - unconstrained (i, j): ``K[I,J] += k_ij``;
@@ -30,6 +31,8 @@ import numpy as np
 import torch
 
 from coulomb_gmg_tpu_torch.mesh.dofs import Constraints
+
+GATHER_WIDTH = 8      # entries of one target summed per gather_sum round
 
 
 @dataclass
@@ -303,69 +306,41 @@ def assemble_np(plan: AssemblyPlan, k_cells, f_cells=None, dtype=np.float64):
     return data, rhs
 
 
-def _gather_table(pos: np.ndarray, n_out: int) -> np.ndarray:
-    """Transpose of a scatter map as a gather table (K, n_out): column o
-    lists, in ascending order, the entries p with ``pos[p] == o``; empty
-    slots point at ``len(pos)`` (an appended zero)."""
-    pos = np.asarray(pos, np.int64)
-    order = np.argsort(pos, kind="stable")
-    counts = np.bincount(pos, minlength=n_out)
-    start = np.zeros(n_out + 1, np.int64)
-    np.cumsum(counts, out=start[1:])
-    K = max(int(counts.max()) if len(counts) else 0, 1)
-    table = np.full((K, n_out), len(pos), np.int64)
-    sp = pos[order]
-    table[np.arange(len(pos)) - start[sp], sp] = order
-    return table
+def gather_sum(vals: torch.Tensor, pos: np.ndarray,
+               n_out: int) -> torch.Tensor:
+    """``zeros(n_out).index_add(0, pos, vals)`` as gathers, with the same
+    order of additions on every run and device (no atomics).
 
+    The entries are sorted by target (stably); each round sums runs of up
+    to ``GATHER_WIDTH`` consecutive entries of one target through a
+    (width, n_runs) gather table, until one value per target is left.  A
+    target hit by at most ``GATHER_WIDTH`` entries is summed in one
+    gather, in entry order; the few hit by many (constraint-expanded
+    masters, up to ~200 entries) take a round per factor of
+    ``GATHER_WIDTH`` instead of widening every target's table to
+    theirs."""
+    width = GATHER_WIDTH
+    out = vals.new_zeros(n_out)
+    if len(pos) == 0:
+        return out
+    dev = vals.device
+    order = np.argsort(np.asarray(pos, np.int64), kind="stable")
+    target = np.asarray(pos, np.int64)[order]
+    v = vals[torch.from_numpy(order).to(dev)]
+    while True:
+        first = np.flatnonzero(np.r_[True, target[1:] != target[:-1]])
+        counts = np.diff(np.r_[first, len(target)])
+        local = np.arange(len(target)) - np.repeat(first, counts)
+        starts = local % width == 0          # an entry that opens a run
+        run = np.cumsum(starts) - 1
+        table = np.full((min(width, int(counts.max())), int(run[-1]) + 1),
+                        len(target), np.int64)
+        table[local % width, run] = np.arange(len(target))
+        v = torch.cat([v, v.new_zeros(1)])[torch.from_numpy(table).to(
+            dev)].sum(0)
+        target = target[starts]
+        if counts.max() <= width:
+            break
+    out[torch.from_numpy(target).to(dev)] = v
+    return out
 
-def _gather_sum(vals: torch.Tensor, pos: np.ndarray, n_out: int):
-    """``zeros(n_out).index_add(0, pos, vals)`` as a gather-sum: the same
-    order of additions on every run and device (no atomics)."""
-    table = torch.from_numpy(_gather_table(pos, n_out)).to(vals.device)
-    padded = torch.cat([vals, vals.new_zeros(1)])
-    return padded[table].sum(0)
-
-
-def assemble(plan: AssemblyPlan, k_cells: torch.Tensor, f_cells=None,
-             dtype: torch.dtype = torch.float64):
-    """Scatter batched element matrices/vectors into (csr_data, rhs) on
-    ``k_cells``' device.
-
-    k_cells: (n_cells, nb, nb); f_cells: (n_cells, nb) or None.  Returns
-    (data (nnz,), rhs (n,) or None).  Every accumulation is a gather over
-    the transposed scatter maps (:func:`_gather_sum`)."""
-    dev = k_cells.device
-    nnz = plan.pattern.nnz
-    n = plan.pattern.n_rows
-    idx = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-    k_cells = k_cells.to(dtype)
-    parts = [k_cells[idx(plan.clean_idx)].reshape(-1)]
-    if len(plan.md_cell):
-        parts.append(k_cells[idx(plan.md_cell), idx(plan.md_i),
-                             idx(plan.md_j)]
-                     * torch.as_tensor(plan.md_w, dtype=dtype, device=dev))
-    pos = [plan.m_pos]
-    if len(plan.d_pos):
-        parts.append(k_cells[idx(plan.d_cell), idx(plan.d_i), idx(plan.d_i)])
-        pos.append(plan.d_pos)
-    data = _gather_sum(torch.cat(parts), np.concatenate(pos), nnz)
-
-    rhs = None
-    if f_cells is not None:
-        f_cells = f_cells.to(dtype)
-        parts = [f_cells[idx(plan.clean_idx)].reshape(-1)]
-        pos = [plan.r_dof_clean]
-        if len(plan.rd_dof):
-            dirty = idx(plan.dirty_idx)
-            lift = torch.einsum("cij,cj->ci", k_cells[dirty],
-                                torch.as_tensor(plan.gd_local, dtype=dtype,
-                                                device=dev))
-            f_eff = f_cells[dirty] - lift
-            parts.append(f_eff[idx(plan.rd_cell), idx(plan.rd_i)]
-                         * torch.as_tensor(plan.rd_w, dtype=dtype,
-                                           device=dev))
-            pos.append(plan.rd_dof)
-        # constrained rows get a ZERO rhs (see assemble_np)
-        rhs = _gather_sum(torch.cat(parts), np.concatenate(pos), n)
-    return data, rhs

@@ -1,0 +1,164 @@
+"""VTU / PVTU / VisIt output.
+
+Replaces the reference's ``DataOut`` + ``write_vtu``/``write_pvtu_record``/
+``write_visit_record`` pipeline (src/step-50.cc:1149-1308): unstructured
+hex/quad mesh with point data (solution, -grad phi, optional analytic
+solution / interpolated RHS / per-atom support), cell data (subdomain id,
+error indicator).  Default encoding is zlib-compressed base64 ("binary"
+DataArrays with vtkZLibDataCompressor headers — the deal.II/ParaView
+default; ~10-20x smaller than ascii at 1.8M cells while staying
+well-formed XML); ``encoding="ascii"`` keeps the human-readable form.
+"""
+
+from __future__ import annotations
+
+import base64
+import os
+import zlib
+from typing import Dict, Optional
+
+import numpy as np
+
+from coulomb_gmg_tpu_torch.mesh.forest import Forest, corner_offsets
+
+
+# VTK cell types: quad = 9, hexahedron = 12
+_VTK_TYPE = {2: 9, 3: 12}
+# VTK vertex orderings (VTK quad/hex are counter-clockwise, deal.II/our
+# ordering is lexicographic) — map local index -> our corner index
+_VTK_ORDER = {2: [0, 1, 3, 2], 3: [0, 1, 3, 2, 4, 5, 7, 6]}
+_VTK_DTYPE = {np.dtype(np.float64): "Float64",
+              np.dtype(np.float32): "Float32",
+              np.dtype(np.int64): "Int64",
+              np.dtype(np.int32): "Int32",
+              np.dtype(np.uint8): "UInt8"}
+
+
+def _b64_zlib_block(arr: np.ndarray) -> str:
+    """One "binary" (inline base64) block with the vtkZLibDataCompressor
+    single-block header [n_blocks, block_size, last_block_size,
+    compressed_size] (UInt64, matching header_type="UInt64")."""
+    raw = np.ascontiguousarray(arr).tobytes()
+    comp = zlib.compress(raw, 6)
+    header = np.array([1, len(raw), len(raw), len(comp)],
+                      dtype=np.uint64).tobytes()
+    return (base64.b64encode(header).decode()
+            + base64.b64encode(comp).decode())
+
+
+def _write_array(f, arr: np.ndarray, name: Optional[str], ncomp: int,
+                 encoding: str) -> None:
+    vtype = _VTK_DTYPE[np.dtype(arr.dtype)]
+    attrs = f'type="{vtype}"'
+    if name is not None:
+        attrs += f' Name="{name}"'
+    if ncomp != 1:
+        attrs += f' NumberOfComponents="{ncomp}"'
+    if encoding == "ascii":
+        f.write(f'<DataArray {attrs} format="ascii">\n')
+        np.savetxt(f, arr, fmt="%d" if arr.dtype.kind in "iu" else "%.10g")
+    else:
+        f.write(f'<DataArray {attrs} format="binary">\n')
+        f.write(_b64_zlib_block(arr))
+        f.write("\n")
+    f.write('</DataArray>\n')
+
+
+def write_vtu(path: str, forest: Forest,
+              point_data: Optional[Dict[str, np.ndarray]] = None,
+              cell_data: Optional[Dict[str, np.ndarray]] = None,
+              cells: Optional[np.ndarray] = None,
+              encoding: str = "binary") -> None:
+    """One VTU piece.  ``cells`` restricts the piece to a cell subset —
+    the per-rank piece of the reference's parallel output
+    (src/step-50.cc:1252-1297); the full point list is shared.
+    ``encoding``: "binary" (zlib+base64, the production default) or
+    "ascii"."""
+    assert encoding in ("binary", "ascii")
+    dofs = forest.dofs
+    pts = dofs.positions
+    if forest.dim == 2:
+        pts = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1)
+    conn = dofs.cell2dof[:, _VTK_ORDER[forest.dim]]
+    if cells is not None:
+        cells = np.asarray(cells)
+        conn = conn[cells]
+        cell_data = {k: np.asarray(v)[cells]
+                     for k, v in (cell_data or {}).items()}
+    n_pts, n_cells = len(pts), len(conn)
+    nb = conn.shape[1]
+    compressor = (' compressor="vtkZLibDataCompressor"'
+                  if encoding == "binary" else "")
+
+    with open(path, "w") as f:
+        f.write('<?xml version="1.0"?>\n')
+        f.write(f'<VTKFile type="UnstructuredGrid" version="0.1" '
+                f'byte_order="LittleEndian" header_type="UInt64"'
+                f'{compressor}>\n<UnstructuredGrid>\n')
+        f.write(f'<Piece NumberOfPoints="{n_pts}" NumberOfCells="{n_cells}">\n')
+        f.write('<Points>\n')
+        _write_array(f, np.asarray(pts, np.float64), None, 3, encoding)
+        f.write('</Points>\n<Cells>\n')
+        _write_array(f, np.asarray(conn, np.int64), "connectivity", 1,
+                     encoding)
+        _write_array(f, np.arange(1, n_cells + 1, dtype=np.int64) * nb,
+                     "offsets", 1, encoding)
+        _write_array(f, np.full(n_cells, _VTK_TYPE[forest.dim], np.uint8),
+                     "types", 1, encoding)
+        f.write('</Cells>\n')
+
+        f.write('<PointData>\n')
+        for name, arr in (point_data or {}).items():
+            arr = np.asarray(arr, np.float64)
+            ncomp = 1 if arr.ndim == 1 else arr.shape[1]
+            _write_array(f, arr, name, ncomp, encoding)
+        f.write('</PointData>\n<CellData>\n')
+        for name, arr in (cell_data or {}).items():
+            _write_array(f, np.asarray(arr, np.float64), name, 1, encoding)
+        f.write('</CellData>\n</Piece>\n</UnstructuredGrid>\n</VTKFile>\n')
+
+
+def write_pvtu(path: str, piece_files, point_names=(), cell_names=()):
+    """Master record over per-shard pieces (src/step-50.cc:1282-1297)."""
+    with open(path, "w") as f:
+        f.write('<?xml version="1.0"?>\n')
+        f.write('<VTKFile type="PUnstructuredGrid" version="0.1">\n'
+                '<PUnstructuredGrid GhostLevel="0">\n')
+        f.write('<PPoints><PDataArray type="Float64" NumberOfComponents="3"/>'
+                '</PPoints>\n<PPointData>\n')
+        for n in point_names:
+            f.write(f'<PDataArray type="Float64" Name="{n}"/>\n')
+        f.write('</PPointData>\n<PCellData>\n')
+        for n in cell_names:
+            f.write(f'<PDataArray type="Float64" Name="{n}"/>\n')
+        f.write('</PCellData>\n')
+        for p in piece_files:
+            f.write(f'<Piece Source="{os.path.basename(p)}"/>\n')
+        f.write('</PUnstructuredGrid>\n</VTKFile>\n')
+
+
+def write_visit_record(path: str, piece_files) -> None:
+    """VisIt master file (src/step-50.cc:1298-1303)."""
+    with open(path, "w") as f:
+        f.write(f"!NBLOCKS {len(piece_files)}\n")
+        for p in piece_files:
+            f.write(os.path.basename(p) + "\n")
+
+
+def nodal_gradient(forest: Forest, u: np.ndarray) -> np.ndarray:
+    """-grad(phi) averaged to nodes (the GradientPostprocessor of
+    src/step-50.cc:1123-1147, rendered as nodal data)."""
+    from coulomb_gmg_tpu_torch.ops.q1 import _basis_at
+    dim = forest.dim
+    dofs = forest.dofs
+    off = corner_offsets(dim).astype(np.float64)
+    grads_at_corners = _basis_at(dim, 1, off)[1]        # (nb, nb, dim)
+    ucell = np.asarray(u)[dofs.cell2dof]                # (c, nb)
+    h = forest.cell_h()
+    g = np.einsum("cb,vbd->cvd", ucell, grads_at_corners) / h[:, None, None]
+    out = np.zeros((dofs.n_dofs, dim))
+    cnt = np.zeros(dofs.n_dofs)
+    np.add.at(out, dofs.cell2dof.reshape(-1),
+              g.reshape(-1, dim))
+    np.add.at(cnt, dofs.cell2dof.reshape(-1), 1.0)
+    return -out / cnt[:, None]

@@ -285,15 +285,20 @@ def _rho_block(lower, h, pref, x1, pos, qa, r_c: float) -> torch.Tensor:
 def compute_density(forest: Forest, points_ref: np.ndarray, positions,
                     charges, r_c: float, device, mask=None, lists=None,
                     dtype: torch.dtype = torch.float64,
-                    pairs_per_chunk: int = 1 << 24) -> torch.Tensor:
+                    pairs_per_chunk: int = 1 << 24,
+                    cells: Optional[range] = None) -> torch.Tensor:
     """rho~ per (cell, reference quadrature point), ``(n_cells, n_q)`` on
     ``device``: over each cell's atom list (``lists``, -1 padded), its mask
     row (``mask``), or every atom.  Cells with an empty locality set are
     exactly zero, and list cells are grouped by list length (classes 8,
     32, 128, ...) so that short lists are not padded to the longest, as in
-    coulomb_gmg_tpu/ops/density.py:compute_density."""
+    coulomb_gmg_tpu/ops/density.py:compute_density.  ``cells`` (a range of
+    cell indices, default all) restricts it to those cells, one row each:
+    a shard's own block (parallel/spmd.py)."""
     dev = torch.device(device)
-    n_cells, n_q, dim = forest.n_cells, len(points_ref), forest.dim
+    n_q, dim = len(points_ref), forest.dim
+    sel = np.arange(forest.n_cells) if cells is None else \
+        np.arange(cells.start, cells.stop)
     const = 4.0 * np.pi / (r_c ** 3 * np.pi ** 1.5)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
     pos = put(np.asarray(positions, np.float64).reshape(-1, dim))
@@ -301,42 +306,44 @@ def compute_density(forest: Forest, points_ref: np.ndarray, positions,
     x1 = _tensor_rule_1d(np.asarray(points_ref, np.float64), dim)
     x1 = put(x1) if x1 is not None else None
     pref = put(points_ref)
-    out = torch.zeros(n_cells, n_q, dtype=dtype, device=dev)
+    out = torch.zeros(len(sel), n_q, dtype=dtype, device=dev)
 
-    def run(cells, width, qa_of, pos_of):
+    def run(rows, width, qa_of, pos_of):
         n1 = n_q if x1 is None else x1.numel()
         step = max(1, pairs_per_chunk // max(n1 * width * dim, 1))
-        lower = put(forest.cell_lower(cells))
-        h = put(forest.cell_h(cells))
-        for s in range(0, len(cells), step):
-            e = min(s + step, len(cells))
+        lower = put(forest.cell_lower(sel[rows]))
+        h = put(forest.cell_h(sel[rows]))
+        for s in range(0, len(rows), step):
+            e = min(s + step, len(rows))
             rho = _rho_block(lower[s:e], h[s:e], pref, x1, pos_of(s, e),
                              qa_of(s, e), r_c)
-            out[torch.from_numpy(cells[s:e]).to(dev)] = const * rho
+            out[torch.from_numpy(rows[s:e]).to(dev)] = const * rho
 
     if lists is not None:
+        lists = lists[sel]
         counts = (lists >= 0).sum(axis=1)
         lo, kclass = 1, 8
         while lo <= lists.shape[1]:
             hi = min(kclass, lists.shape[1])
-            cells = np.where((counts >= lo) & (counts <= hi))[0]
-            if len(cells):
+            rows = np.where((counts >= lo) & (counts <= hi))[0]
+            if len(rows):
                 li = torch.from_numpy(
-                    np.ascontiguousarray(lists[cells][:, :hi])).to(dev)
+                    np.ascontiguousarray(lists[rows][:, :hi])).to(dev)
                 safe = li.clamp(min=0).long()
                 qa = torch.where(li >= 0, q[safe], 0.0)
-                run(cells, hi, lambda s, e: qa[s:e],
+                run(rows, hi, lambda s, e: qa[s:e],
                     lambda s, e: pos[safe[s:e]])
             lo = hi + 1
             kclass *= 4
         return out
     if mask is not None:
-        cells = np.where(mask.any(axis=1))[0]
-        mk = torch.from_numpy(np.ascontiguousarray(mask[cells])).to(dev)
-        run(cells, len(q), lambda s, e: q[None, :] * mk[s:e],
+        mask = mask[sel]
+        rows = np.where(mask.any(axis=1))[0]
+        mk = torch.from_numpy(np.ascontiguousarray(mask[rows])).to(dev)
+        run(rows, len(q), lambda s, e: q[None, :] * mk[s:e],
             lambda s, e: pos)
         return out
-    cells = np.arange(n_cells)
-    run(cells, len(q), lambda s, e: q[None, :].expand(e - s, -1),
+    rows = np.arange(len(sel))
+    run(rows, len(q), lambda s, e: q[None, :].expand(e - s, -1),
         lambda s, e: pos)
     return out

@@ -69,16 +69,18 @@ def point_values(forest: Forest, u: np.ndarray, points: np.ndarray,
 
 
 def electrostatic_energy(forest: Forest, u: np.ndarray, positions: np.ndarray,
-                         charges: np.ndarray, r_c: float,
-                         degree: int = 1) -> Dict[str, float]:
-    """The energy split of src/step-50.cc:1310-1420 (float64 numpy)."""
+                         charges: np.ndarray, r_c: float, degree: int = 1,
+                         phi_at_atoms: np.ndarray = None) -> Dict[str, float]:
+    """The energy split of src/step-50.cc:1310-1420 (float64 numpy);
+    ``phi_at_atoms``: the solution at the atoms, if already evaluated."""
     d = positions[:, None, :] - positions[None, :, :]
     r = np.sqrt((d * d).sum(-1))
     iu = np.triu_indices(len(charges), 1)
     qq = np.outer(charges, charges)
     analytic = float((qq[iu] / r[iu]).sum())
     short = float((qq[iu] * erfc(r[iu] / r_c) / r[iu]).sum())
-    phi_at_atoms = point_values(forest, u, positions, degree=degree)
+    if phi_at_atoms is None:
+        phi_at_atoms = point_values(forest, u, positions, degree=degree)
     fe_long = float(0.5 * np.sum(charges * phi_at_atoms))
     self_e = float(np.sum(charges ** 2) / (np.sqrt(np.pi) * r_c))
     total_split = short + fe_long - self_e
@@ -100,34 +102,48 @@ def energy_norm_error(forest: Forest, tables: ElementTables, u,
     """sqrt( sum_c int_c ||grad u_h - grad u_exact||^2 dx ) with the rule of
     ``tables`` (the Laplace table, src/step-50.cc:1423-1461).
 
-    Per chunk of cells on ``device``: ``grad_h`` from the cell's DoF
-    values, the exact gradient at ``lower + h * pref``, and the weighted
-    squared difference, summed in float64 on the device; one scalar is read
-    at the end.  ``dtype`` float32 is the production path (the exact
-    gradient through :func:`exact_gradient`, the kernel on the card);
-    float64 evaluates it with the plain version (the kernel is float32
-    only) and is the oracle of the float32 path."""
+    ``dtype`` float32 is the production path (the exact gradient through
+    :func:`exact_gradient`, the kernel on the card); float64 evaluates it
+    with the plain version (the kernel is float32 only) and is the oracle
+    of the float32 path.  See :func:`energy_norm_error_sq`."""
+    return float(torch.sqrt(energy_norm_error_sq(
+        forest, tables, u, positions, charges, r_c, device, dtype=dtype,
+        chunk=chunk)))
+
+
+def energy_norm_error_sq(forest: Forest, tables: ElementTables, u,
+                         positions, charges, r_c: float, device,
+                         dtype: torch.dtype = torch.float32,
+                         chunk: int = 1 << 18,
+                         cells: range = None) -> torch.Tensor:
+    """The squared error of :func:`energy_norm_error` summed over the cells
+    ``cells`` (default all), a float64 0-dim tensor on ``device``.
+
+    Per chunk of cells: ``grad_h`` from the cell's DoF values, the exact
+    gradient at ``lower + h * pref``, and the weighted squared difference,
+    summed in float64 on the device."""
     dev = torch.device(device)
     dim = forest.dim
-    n = forest.n_cells
+    cells = range(forest.n_cells) if cells is None else cells
     grad_fn = exact_gradient if dtype == torch.float32 else \
         exact_gradient_plain
 
     def put(a, dt=dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
 
-    c2d = put(forest.dofs_of(tables.degree).cell2dof, torch.int64)
+    sel = slice(cells.start, cells.stop)
+    c2d = put(forest.dofs_of(tables.degree).cell2dof[sel], torch.int64)
     u_d = put(np.asarray(u, np.float64))
-    h = put(forest.cell_h())
-    lower = put(forest.cell_lower())
+    h = put(forest.cell_h()[sel])
+    lower = put(forest.cell_lower()[sel])
     dphi = put(tables.dphi)                             # (n_q, nb, dim)
     pref = put(tables.points)                           # (n_q, dim)
     w = put(tables.weights, torch.float64)              # (n_q,)
     atoms = pack_atoms(positions, charges, dev, dtype)
     n_q = pref.shape[0]
     acc = torch.zeros((), dtype=torch.float64, device=dev)
-    for s in range(0, n, chunk):
-        e = min(s + chunk, n)
+    for s in range(0, len(cells), chunk):
+        e = min(s + chunk, len(cells))
         hh = h[s:e]
         grad_h = torch.einsum("cb,qbd->cqd", u_d[c2d[s:e]], dphi) \
             / hh[:, None, None]
@@ -136,4 +152,4 @@ def energy_norm_error(forest: Forest, tables: ElementTables, u,
         diff2 = ((grad_h - grad_ex.reshape(e - s, n_q, dim)) ** 2).sum(-1)
         acc += ((diff2.to(torch.float64) @ w)
                 * hh.to(torch.float64) ** dim).sum()
-    return float(torch.sqrt(acc))
+    return acc

@@ -140,11 +140,10 @@ class StencilGMG:
 
     def __init__(self, forest: Forest, dofs: DofInfo,
                  constraints: Constraints, device, dtype=torch.float32,
-                 cache: Optional[dict] = None):
-        if dofs.degree != 1 or forest.base_reps < 3:
-            raise NotImplementedError(
-                "StencilGMG needs Q1 and a level-0 box of >= 3 cells per "
-                "axis (the exact DST coarse solve)")
+                 cache: Optional[dict] = None, coarse_maxiter: int = 500,
+                 coarse_rtol: float = 1e-6):
+        if dofs.degree != 1:
+            raise NotImplementedError("StencilGMG is Q1-only")
         self.device = torch.device(device)
         self.dtype = dtype
         dim = forest.dim
@@ -251,18 +250,24 @@ class StencilGMG:
         sys = {k: (v.to(dtype) if v.is_floating_point() else v)
                for k, v in self.sys64.items() if k not in ("g_full", "hdim")}
 
-        # ---- DST coarse solve (level 0 is a full uniform box)
+        # ---- coarse solve: the exact DST when level 0 is a full uniform
+        # box of >= 3 cells per axis, else the Chebyshev-preconditioned CG
+        # on level 0 to coarse_rtol / coarse_maxiter (solver/gmg.py)
+        dst = None
         m0 = forest.base_reps
-        d = DSTPoisson.build(dim, m0, float(forest.h(0)),
-                             np.float32 if dtype == torch.float32
-                             else np.float64)
-        coords0 = np.stack(np.meshgrid(*([np.arange(m0 + 1)] * dim),
-                                       indexing="ij"), -1).reshape(-1, dim)
-        interior = (coords0 > 0).all(1) & (coords0 < m0).all(1)
-        dst = (put(d.S), put(d.lam),
-               *(put(a) for a in dst_tables(interior, nl_pads[0])))
+        if m0 >= 3:
+            d = DSTPoisson.build(dim, m0, float(forest.h(0)),
+                                 np.float32 if dtype == torch.float32
+                                 else np.float64)
+            coords0 = np.stack(np.meshgrid(*([np.arange(m0 + 1)] * dim),
+                                           indexing="ij"), -1).reshape(-1, dim)
+            interior = (coords0 > 0).all(1) & (coords0 < m0).all(1)
+            dst = (put(d.S), put(d.lam),
+                   *(put(a) for a in dst_tables(interior, nl_pads[0])))
         self.ops = {"sys": sys, "levels": levels, "src_lvl": put(src_lvl),
-                    "src_idx": put(src_idx), "dst": dst, "dim": dim}
+                    "src_idx": put(src_idx), "dst": dst, "dim": dim,
+                    "coarse_rtol": coarse_rtol,
+                    "coarse_maxiter": coarse_maxiter}
         self.b64 = None
 
     def _build_level(self, t, nl_pad, T, dim, put, l):

@@ -80,17 +80,6 @@ def test_assemble_np_matches_jax(prob):
     assert rel_err(rhs, jrhs) < 1e-12
 
 
-def test_torch_assemble_matches_jax(prob):
-    jdata, jrhs = JA.assemble(prob["plan_j"], jnp.asarray(prob["K"]),
-                              jnp.asarray(prob["F"]))
-    data, rhs = TA.assemble(prob["plan_t"], t64(prob["K"]), t64(prob["F"]))
-    assert rel_err(data.numpy(), np.asarray(jdata)) < 1e-12
-    assert rel_err(rhs.numpy(), np.asarray(jrhs)) < 1e-12
-    # the same additions in the same order on every call
-    again, _ = TA.assemble(prob["plan_t"], t64(prob["K"]), None)
-    assert torch.equal(again, data)
-
-
 @pytest.mark.parametrize("product", ["matvec", "matvec_T", "diagonal"])
 def test_csr_products_match_jax(prob, product):
     pat = prob["plan_t"].pattern

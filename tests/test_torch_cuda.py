@@ -308,3 +308,49 @@ def test_host_assembled_step16_on_card(card, precision):
                 precision == "float64"
     assert out[0][0] == out[1][0]
     assert all(abs(a - b) <= 1 for a, b in zip(out[0][1], out[1][1]))
+
+
+def test_sharded_tile_density_on_card(card):
+    """Three shards of the tile kernel on one card: the same bits as one
+    launch over the whole plan, one launch per shard."""
+    from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
+    f, atoms, tab = tile_setup(2, 2, 2)
+    args = (f, tab.points, atoms.positions, atoms.charges, R_C)
+    one = td.density_locality_tiles(*args, CUT, card, c_pad=f.n_cells)
+    before = td.tile_density.launches
+    got = SpmdContext(3, ["cuda:0"] * 3).density_tiles(*args, CUT)
+    assert td.tile_density.launches == before + 3
+    assert got.is_cuda and torch.equal(got, one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_ell_apply_on_card(card, dtype):
+    """A CSR operator row-partitioned over three shards of one card, ghosts
+    imported: the ELL kernel per shard gives the single-device kernel's
+    bits."""
+    from coulomb_gmg_tpu_torch.fem.assembly import assemble_np, build_plan
+    from coulomb_gmg_tpu_torch.fem.integrals import stiffness_cells_np
+    from coulomb_gmg_tpu_torch.ops.spmv import CSR
+    from coulomb_gmg_tpu_torch.parallel.sharded import (
+        HaloPlan, ShardedCSR, apply_ells, halo_import, put_blocks,
+        shard_ells, shard_vector)
+    from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
+    from torch_parity import refined_problem
+    f, dofs, con, _, _ = refined_problem(2)
+    plan = build_plan(dofs.cell2dof, con)
+    K = stiffness_cells_np(element_tables(3, 1, 2), f.cell_h())
+    data, _ = assemble_np(plan, K)
+    A = CSR.from_pattern(plan.pattern.indptr, plan.pattern.indices, data,
+                         device=card)
+    x = np.random.default_rng(3).standard_normal(A.n_rows)
+    y1 = ell.ell_mv(*A.ell(dtype=dtype), torch.from_numpy(x).to(card, dtype))
+    ctx = SpmdContext(3, ["cuda:0"] * 3)
+    S = ShardedCSR.from_coo(A.rowids, A.indices, data, A.n_rows, 3)
+    hp = HaloPlan.build(S.cols, S.block, 3)
+    ells = shard_ells(S.rows_local, hp.cols_local, S.data, S.block, ctx,
+                      dtype)
+    before = ell.ell_mv.launches
+    ys = apply_ells(ells, halo_import(put_blocks(shard_vector(x, 3), ctx,
+                                                 dtype), hp, ctx))
+    assert ell.ell_mv.launches == before + 3
+    assert torch.equal(torch.cat(ys)[: A.n_rows], y1)

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's host modules (mesh/, fem/,
-adapt/transfer.py, ops/neighbors.py, config.py, models/atoms.py, and the
-native engine they run, built from the port's csrc/forest_engine.cpp)
+adapt/transfer.py, ops/neighbors.py, config.py, models/atoms.py,
+io/vtu.py, io/gnuplot.py, and the native engine they run, built from the
+port's csrc/forest_engine.cpp)
 against the JAX package's modules on the same seeded numpy inputs: every
 array equal, nothing within a tolerance."""
 
@@ -14,12 +15,16 @@ import torch
 from coulomb_gmg_tpu import config as JC
 from coulomb_gmg_tpu.adapt import transfer as JT
 from coulomb_gmg_tpu.fem import constraints as JF
+from coulomb_gmg_tpu.io import gnuplot as JG
+from coulomb_gmg_tpu.io import vtu as JV
 from coulomb_gmg_tpu.mesh import forest as JM
 from coulomb_gmg_tpu.models import atoms as JA
 from coulomb_gmg_tpu.ops import neighbors as JN
 from coulomb_gmg_tpu_torch import config as TC
 from coulomb_gmg_tpu_torch.adapt import transfer as TT
 from coulomb_gmg_tpu_torch.fem import constraints as TF
+from coulomb_gmg_tpu_torch.io import gnuplot as TG
+from coulomb_gmg_tpu_torch.io import vtu as TV
 from coulomb_gmg_tpu_torch.mesh import forest as TM
 from coulomb_gmg_tpu_torch.models import atoms as TA
 from coulomb_gmg_tpu_torch.ops import neighbors as TN
@@ -153,3 +158,49 @@ def test_nacl_lattice_matches_jax(n):
     _eq(t.positions, j.positions)
     _eq(t.charges, j.charges)
     assert t.n == j.n == 8 * n ** 3
+
+
+@pytest.mark.parametrize("dim, reps, seed", CASES)
+@pytest.mark.parametrize("encoding", ["binary", "ascii"])
+def test_vtu_output_matches_jax(tmp_path, dim, reps, seed, encoding):
+    """io/vtu.py: the same bytes in every file, the same nodal gradient."""
+    ft = _forests(TM, dim, reps, seed)[-1]
+    fj = _forests(JM, dim, reps, seed)[-1]
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal(ft.dofs.n_dofs)
+    gt, gj = TV.nodal_gradient(ft, u), JV.nodal_gradient(fj, u)
+    _eq(gt, gj)
+    cells = np.flatnonzero(rng.random(ft.n_cells) < 0.5)
+    cell_data = {"subdomain": rng.integers(0, 3, ft.n_cells) * 1.0,
+                 "error_indicator": rng.random(ft.n_cells)}
+    out = {}
+    for tag, mod, f, g in (("t", TV, ft, gt), ("j", JV, fj, gj)):
+        piece = str(tmp_path / f"{tag}.0000.vtu")
+        mod.write_vtu(piece, f, {"solution": u, "grad_phi": g}, cell_data,
+                      cells=cells, encoding=encoding)
+        mod.write_pvtu(str(tmp_path / f"{tag}.pvtu"), [piece],
+                       point_names=["solution", "grad_phi"],
+                       cell_names=list(cell_data))
+        mod.write_visit_record(str(tmp_path / f"{tag}.visit"), [piece])
+        out[tag] = [open(str(tmp_path / f"{tag}{ext}"), "rb").read()
+                    .replace(f"{tag}.0000".encode(), b"P")
+                    for ext in (".0000.vtu", ".pvtu", ".visit")]
+    assert out["t"] == out["j"]
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_gnuplot_output_matches_jax(tmp_path, with_mask):
+    """io/gnuplot.py: the same two scripts, byte for byte."""
+    ft = _forests(TM, 2, 12, 0)[-1]
+    fj = _forests(JM, 2, 12, 0)[-1]
+    mask = (np.random.default_rng(1).random((ft.n_cells, 5)) < 0.3
+            if with_mask else None)
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    TG.grid_output_debug(ft, mask, 3, 2, str(tmp_path / "t"))
+    JG.grid_output_debug(fj, mask, 3, 2, str(tmp_path / "j"))
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert names == sorted(os.listdir(tmp_path / "t")) and len(names) == 2
+    for n in names:
+        assert (tmp_path / "t" / n).read_bytes() == \
+            (tmp_path / "j" / n).read_bytes()

@@ -1,8 +1,7 @@
 """Boundaries of the PyTorch port: it imports neither jax nor the JAX
-package, it refuses the configurations it has not ported (several devices,
-output) and routes every other one to the device-operator or the
-host-assembled path, and its entry points run on the card unless the CPU
-is asked for (never falling back to it)."""
+package, it routes every configuration to the device-operator, the
+host-assembled or the SPMD path, and its entry points run on the card
+unless the CPU is asked for (never falling back to it)."""
 
 import os
 import subprocess
@@ -15,7 +14,7 @@ from coulomb_gmg_tpu_torch.config import (golden_gaussian_config,
                                           production_scaling_config)
 from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
 from coulomb_gmg_tpu_torch import device as D
-from coulomb_gmg_tpu_torch.driver import Simulation, check_slice
+from coulomb_gmg_tpu_torch.driver import Simulation
 
 torch.set_num_threads(2)
 
@@ -28,7 +27,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
-assert "coulomb_gmg_tpu_torch.driver" in sys.modules
+for name in ("driver", "io.vtu", "io.gnuplot", "parallel.sharded",
+             "parallel.sharded_gmg", "parallel.spmd"):
+    assert "coulomb_gmg_tpu_torch." + name in sys.modules, name
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 ref = sorted(m for m in sys.modules if m == "coulomb_gmg_tpu"
              or m.startswith("coulomb_gmg_tpu."))
@@ -52,20 +53,33 @@ def test_port_and_smoke_script_never_import_jax():
     dict(flag_compute_quadrupole=True), dict(device_operators="off"),
     dict(problem="Step16"), dict(write_vtu=True)])
 def test_out_of_slice_configs_raise(override):
-    """Several devices and output still raise; the other configurations
-    are accepted: the quadrupole keeps the float32 production run on the
-    device-operator path (its rule: float32, GaussianCharges, Q1, GMG),
-    the rest are routed to the host-assembled path."""
+    """Every configuration is accepted now (several devices and output
+    included) and routed: the quadrupole and output keep the float32
+    production run on the device-operator path, several devices take the
+    SPMD path (host-assembled, no use_tpu_cg, as the JAX driver sets it),
+    the rest the host-assembled path."""
     cfg = production_scaling_config(1, dtype="float32").replace(**override)
-    if "n_devices" in override or "write_vtu" in override:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            check_slice(cfg)
-        return
-    check_slice(cfg)
-    sim = Simulation(cfg, atoms=nacl_lattice(1), device="cpu")
-    host_assembled = "flag_compute_quadrupole" not in override
-    assert sim.device_ops is not host_assembled
-    assert sim.use_tpu_cg == (cfg.dtype == "float32")
+    D = cfg.n_devices
+    sim = Simulation(cfg, atoms=nacl_lattice(1), device="cpu",
+                     spmd_devices=["cpu"] * D if D > 1 else None)
+    device_ops = ("flag_compute_quadrupole" in override
+                  or "write_vtu" in override)
+    assert sim.device_ops is device_ops
+    assert (sim.spmd is not None) == (D > 1)
+    assert sim.use_tpu_cg == (cfg.dtype == "float32" and D == 1)
+    if D > 1:
+        assert sim.spmd.D == D and sim.spmd.devices == [torch.device(
+            "cpu")] * D
+
+
+def test_spmd_devices_default_to_cuda_cards():
+    """Without a device list each shard takes its own CUDA card, and too
+    few cards is an error, as too few JAX devices is."""
+    cfg = production_scaling_config(1, dtype="float64", n_devices=2)
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA cards are present")
+    with pytest.raises(RuntimeError, match="CUDA devices are visible"):
+        Simulation(cfg, atoms=nacl_lattice(1), device="cpu")
 
 
 def test_golden_host_path_is_not_the_slice():

@@ -1,0 +1,235 @@
+"""The port's operator routing against the JAX driver's: device operators,
+solver route and density, on the CPU.
+
+``device_operators="on"`` takes the device-operator path in either
+precision, with no CSR anywhere; ``"auto"`` only in float32 (the port's
+device plays the JAX ``tpu_device``, which the JAX CPU runs lack).  The
+two configurations of tests/test_device_ops_driver.py:27-45 (two atoms,
+3 cycles, ``solver_backend="tpu_cg"``, ``device_operators="on"``) were run
+once with the JAX driver on the CPU (x64, as tests/conftest.py sets it up;
+~30 s each) and are inlined below:
+
+    golden_gaussian_config(n_adaptive_cycles=3, flag_output_time=False,
+                           mesh_size_h=0.5, vacuum_repetitions=4,
+                           dtype=dtype, solver_backend="tpu_cg",
+                           estimator_volume_term=False,
+                           device_operators="on")
+
+Tolerances: float64 CG counts equal, ``l2_rhs`` rel 5e-9.  The JAX driver
+evaluates the density of a ``tpu_cg`` run in float32 in either precision
+(driver.py:346-354), and so does the port; the two float32 evaluations
+differ in their ``exp`` and matmul rounding, which moves ``l2_rhs`` by
+2.4e-9 at most here (measured), above the 1e-9 that two float64 densities
+would meet.  The float64 device-operator path with a float64 right-hand
+side (the analytic RHS, no atoms) is held to a live JAX run at rel 1e-9.
+Float32 ``l2_rhs`` rel 2e-5: the port takes the tile kernel, JAX on the
+CPU the float32 mask density.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from coulomb_gmg_tpu_torch import driver as D
+from coulomb_gmg_tpu_torch.config import Config, golden_gaussian_config
+from coulomb_gmg_tpu_torch.driver import Simulation
+from coulomb_gmg_tpu_torch.io.lammps import AtomData
+from coulomb_gmg_tpu_torch.models.atoms import two_atom_pair
+from coulomb_gmg_tpu_torch.solver.device_gmg import StencilGMG
+from coulomb_gmg_tpu_torch.solver.multigrid import GMGPreconditioner
+from coulomb_gmg_tpu_torch.utils.logging import Pcout
+
+torch.set_num_threads(2)
+
+JAX_ON = {
+    "float64": dict(cells=[5832, 5916, 6476], cg=[1, 5, 6],
+                    l2_rhs=[2.030404216104, 1.369013312514, 0.7645832397370],
+                    tol=5e-9),
+    "float32": dict(cells=[5832, 5916, 6476], cg=[4, 8, 11],
+                    l2_rhs=[2.030404329300, 1.369013309479, 0.7645832896233],
+                    tol=2e-5),
+}
+
+
+def _cfg(**overrides):
+    kw = dict(n_adaptive_cycles=3, flag_output_time=False, mesh_size_h=0.5,
+              vacuum_repetitions=4, estimator_volume_term=False)
+    kw.update(overrides)
+    return golden_gaussian_config(**kw)
+
+
+def _sim(cfg, atoms=None):
+    return Simulation(cfg, atoms=atoms or two_atom_pair(), device="cpu",
+                      pcout=Pcout(enabled=False))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_device_operators_on_matches_jax(dtype):
+    ref = JAX_ON[dtype]
+    sim = _sim(_cfg(dtype=dtype, solver_backend="tpu_cg",
+                    device_operators="on"))
+    res = sim.run()
+    assert sim.device_ops and sim.device_ops_active()
+    assert sim.plan is None and sim.A is None          # no CSR was built
+    assert isinstance(sim.gmg, StencilGMG)
+    assert [r["n_cells"] for r in res] == ref["cells"]
+    for r, l2 in zip(res, ref["l2_rhs"]):
+        assert r["l2_rhs"] == pytest.approx(l2, rel=ref["tol"])
+        assert r["residual"] <= 1.01e-8 * r["l2_rhs"]
+    if dtype == "float64":
+        # one CG at cg_rtol per cycle, no refinement
+        assert [r["cg_iterations"] for r in res] == ref["cg"]
+        assert [r["cg_passes"] for r in res] == [[k] for k in ref["cg"]]
+    else:
+        # float32 below the CG floor: iterative refinement
+        assert all(len(r["cg_passes"]) >= 2 for r in res)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_device_operators_on_matches_host_path(dtype):
+    """The port's own "on" run against its "off" run, as
+    tests/test_device_ops_driver.py:27-45 holds the JAX paths: both take
+    the same float32 density of the tpu_cg route, so float64 meets rel
+    1e-9 on ``l2_rhs``."""
+    kw = dict(dtype=dtype, solver_backend="tpu_cg")
+    ref = _sim(_cfg(device_operators="off", **kw)).run()
+    dev = _sim(_cfg(device_operators="on", **kw)).run()
+    tol = 1e-9 if dtype == "float64" else 2e-5
+    for r, d in zip(ref, dev):
+        assert d["n_cells"] == r["n_cells"]
+        assert d["n_dofs"] == r["n_dofs"]
+        assert d["cg_iterations"] <= r["cg_iterations"] + 3
+        assert d["l2_rhs"] == pytest.approx(r["l2_rhs"], rel=tol)
+        assert d["l2_sol"] == pytest.approx(r["l2_sol"], rel=100 * tol)
+        assert d["threshold"] == pytest.approx(r["threshold"], rel=100 * tol)
+
+
+def _jax_routing(cfg_kw):
+    """The JAX driver's (device_ops_active, use_tpu_cg) for a config."""
+    from coulomb_gmg_tpu.config import golden_gaussian_config as jcfg
+    from coulomb_gmg_tpu.driver import Simulation as JaxSimulation
+    from coulomb_gmg_tpu.models.atoms import two_atom_pair as jpair
+    from coulomb_gmg_tpu.utils.logging import Pcout as JaxPcout
+    sim = JaxSimulation(jcfg(**cfg_kw), atoms=jpair(),
+                        pcout=JaxPcout(enabled=False))
+    return sim.device_ops_active(), sim.use_tpu_cg
+
+
+@pytest.mark.parametrize("ops", ["on", "off"])
+@pytest.mark.parametrize("over", [
+    dict(dtype="float64", solver_backend="tpu_cg"),
+    dict(dtype="float32", solver_backend="tpu_cg"),
+    dict(dtype="float32", solver_backend="gmg"),
+    dict(dtype="float64", solver_backend="gmg"),
+    dict(dtype="float64", solver_backend="tpu_cg", degree=2),
+    dict(dtype="float32", solver_backend="tpu_cg", preconditioner="Jacobi"),
+    dict(dtype="float32", solver_backend="tpu_cg", problem="Step16"),
+    dict(dtype="float64", solver_backend="tpu_cg", n_devices=2)])
+def test_device_selection_equals_jax(ops, over):
+    kw = dict(over, device_operators=ops)
+    sim = Simulation(golden_gaussian_config(**kw), atoms=two_atom_pair(),
+                     device="cpu", pcout=Pcout(enabled=False),
+                     spmd_devices=["cpu"] * 2 if "n_devices" in kw else None)
+    assert (sim.device_ops, sim.use_tpu_cg) == _jax_routing(kw)
+
+
+def test_auto_follows_the_precision():
+    """"auto": device operators in float32 (the port's device is the
+    accelerator), the host path in float64, as JAX does on a TPU and on
+    the CPU respectively (tests/test_device_ops_driver.py:84)."""
+    f32 = _sim(_cfg(dtype="float32", device_operators="auto"))
+    f64 = _sim(_cfg(dtype="float64", device_operators="auto",
+                    n_adaptive_cycles=1))
+    assert f32.device_ops and f32.use_tpu_cg
+    res = f64.run()
+    assert not f64.device_ops and not f64.use_tpu_cg
+    assert f64.plan is not None and f64.A is not None
+    assert res[0]["cg_passes"] is None
+
+
+def test_float32_gmg_backend_takes_the_host_cg():
+    """float32 with solver_backend="gmg": no use_tpu_cg, so no device
+    operators: the host-loop cg with the level-matrix GMGPreconditioner."""
+    sim = _sim(_cfg(dtype="float32", solver_backend="gmg",
+                    n_adaptive_cycles=2))
+    res = sim.run()
+    assert not sim.device_ops and not sim.use_tpu_cg
+    assert isinstance(sim.gmg, GMGPreconditioner)
+    assert sim.gmg.smoothers[-1] is not None      # the host smoother
+    assert [r["n_cells"] for r in res] == JAX_ON["float32"]["cells"][:2]
+    assert all(r["cg_passes"] is None for r in res)
+
+
+def test_no_density_tiles_takes_the_mask_density(monkeypatch):
+    """density_tiles=False: the float32 mask density (two atoms), never a
+    tile plan; the result agrees with the tile kernel's plain version."""
+    def no_tiles(*a, **kw):
+        raise AssertionError("tile plan built with density_tiles=False")
+
+    tiles = _sim(_cfg(dtype="float32", n_adaptive_cycles=1))
+    ref = tiles.run()
+    assert tiles.mask is None
+    monkeypatch.setattr(D, "density_locality_tiles", no_tiles)
+    sim = _sim(_cfg(dtype="float32", n_adaptive_cycles=1,
+                    density_tiles=False))
+    res = sim.run()
+    assert sim.device_ops and sim.mask is not None
+    assert sim.rho.dtype == torch.float32
+    assert res[0]["l2_rhs"] == pytest.approx(ref[0]["l2_rhs"], rel=1e-6)
+
+
+def _analytic(dim):
+    """An analytic-RHS (no atoms) float64 device-operator configuration."""
+    kw = dict(problem="GaussianCharges", dim=dim, domain_left=-2.5,
+              domain_right=2.5, mesh_size_h=0.3125, vacuum_repetitions=0,
+              n_adaptive_cycles=3, r_c=0.5, nonzero_radius=3.0,
+              boundary_conditions="Inhomogeneous", preconditioner="GMG",
+              estimator_volume_term=False, dtype="float64",
+              flag_output_time=False, solver_backend="tpu_cg")
+    empty = [np.zeros((0, dim)), np.zeros(0), np.zeros(0, np.int32),
+             np.zeros(dim), np.zeros(dim)]
+    return kw, empty
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_device_operators_without_atoms(dim):
+    """The analytic RHS (no atoms) in 2D and 3D, which JAX's eligibility
+    lets through: the device-operator path agrees with the host path."""
+    kw, empty = _analytic(dim)
+    empty = AtomData(*empty)
+    on = _sim(Config(**kw, device_operators="on"), empty)
+    off = _sim(Config(**kw, device_operators="off"), empty)
+    r_on, r_off = on.run(), off.run()
+    assert on.device_ops and not off.device_ops
+    for a, b in zip(r_on, r_off):
+        assert a["n_cells"] == b["n_cells"]
+        assert a["l2_rhs"] == pytest.approx(b["l2_rhs"], rel=1e-12)
+        assert a["l2_sol"] == pytest.approx(b["l2_sol"], rel=1e-8)
+        assert a["residual"] <= 1.01e-8 * a["l2_rhs"]
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_float64_device_operators_match_jax_live(dim):
+    """The float64 device-operator path with a float64 right-hand side
+    (the analytic one: a float64 run with atoms takes the float32 density
+    of the tpu_cg route in both packages) against the JAX driver's
+    ``device_operators="on"`` run, live: cells and CG counts equal,
+    ``l2_rhs`` rel 1e-9, ``l2_sol`` rel 1e-8."""
+    from coulomb_gmg_tpu.config import Config as JaxConfig
+    from coulomb_gmg_tpu.driver import Simulation as JaxSimulation
+    from coulomb_gmg_tpu.io.lammps import AtomData as JaxAtomData
+    from coulomb_gmg_tpu.utils.logging import Pcout as JaxPcout
+    kw, empty = _analytic(dim)
+    jsim = JaxSimulation(JaxConfig(**kw, device_operators="on"),
+                         atoms=JaxAtomData(*empty),
+                         pcout=JaxPcout(enabled=False))
+    ref = jsim.run()
+    sim = _sim(Config(**kw, device_operators="on"), AtomData(*empty))
+    res = sim.run()
+    assert jsim.device_ops_active() and sim.device_ops
+    assert [r["n_cells"] for r in res] == [r["n_cells"] for r in ref]
+    assert ([r["cg_iterations"] for r in res]
+            == [r["cg_iterations"] for r in ref])
+    for r, j in zip(res, ref):
+        assert r["l2_rhs"] == pytest.approx(j["l2_rhs"], rel=1e-9)
+        assert r["l2_sol"] == pytest.approx(j["l2_sol"], rel=1e-8)
