@@ -70,10 +70,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    cycles, and the 8-atom production configuration on 2 shards of
    ``cuda:0`` for 1 cycle, into a temporary directory, parsed back: piece
    counts, ``subdomain``, cells that partition the mesh, finite fields;
-   each run prints its CG counts and true residuals.
+   each run prints its CG counts and true residuals;
+11. several processes: two worker processes of
+   ``coulomb_gmg_tpu_torch.parallel.multihost``, both on ``cuda:0``, joined
+   by a gloo group (CUDA tensors staged through host memory), 2 shards
+   each, D = 4.  Each runs the sharded Jacobi-CG on a 12^3 Poisson matrix
+   and builds the 8,000-atom float64 host-assembled study to cycle 2
+   (``production_scaling_config(10, dtype="float64",
+   n_adaptive_cycles=3)``, 523,592 cells), whose system both then solve by
+   ``ShardedGMG`` across the two processes.  Both ranks must exit 0 and
+   agree on every iteration count and bitwise on the checksums, rank 0's
+   one-process 4-shard solves must be ``torch.equal`` to the two-process
+   ones (so must the all-gather imports), the GMG true residual must be
+   <= 1.01e-8 ||b|| and each rank must have launched the ELL kernel.  It
+   prints each rank's wall, solve seconds, CG count, halo and coarse-gather
+   bytes per V-cycle, seconds in collectives and peak memory.  With two or
+   more cards the same run is made with NCCL, one rank per card;
+   otherwise one line says why not.
 
 The line before the last is the kernels' JSON record (launches summed over
-phases 4 to 10); the last line is ``{"ok": true, "device": {...}}``.
+phases 4 to 11, phase 11's from both workers); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import base64
@@ -877,6 +894,83 @@ def phase_output():
     return total
 
 
+MULTIHOST_TIMEOUT = 900
+
+
+def check_multihost(tag, lines):
+    """Phase 11's gates on the workers' JSON lines; returns the ELL
+    launches of both ranks."""
+    a, b = lines
+    for r in lines:
+        comm = " ".join(f"{k} {r['comm_s'][k]:.3f} s/{r['comm_calls'][k]}"
+                        for k in sorted(r["comm_s"]))
+        peak = ("not measured" if r["peak_gib"] is None
+                else f"{r['peak_gib']:.2f} GiB")
+        print(f"[{tag} rank {r['rank']}] {r['device']} shards {r['shards']}; "
+              f"wall {r['wall_s']:.2f} s (problem {r['problem_s']:.2f} s, "
+              f"ShardedGMG build {r['gmg_build_s']:.2f} s, solve "
+              f"{r['gmg_solve_s']:.3f} s); Jacobi CG {r['iters']}, GMG CG "
+              f"{r['gmg_iters']} over {r['gmg_levels']} levels, coarse CG "
+              f"{r['coarse_cg']}; true residual {r['gmg_true_rel_res']:.3e} "
+              f"|b|; per V-cycle: halo {r['halo_bytes_per_vcycle']:.0f} B, "
+              f"coarse gather {r['coarse_bytes_per_vcycle']:.0f} B sent; "
+              f"collectives (GMG solve) {comm}; ELL launches "
+              f"{r['ell_launches']}; peak {peak}", flush=True)
+    one = a.get("one_process_equal", {})
+    print(f"[{tag}] {a['n_cells']} cells, {a['n_dofs']} dofs; checksums "
+          f"{a['checksum']!r} / {b['checksum']!r}, GMG {a['gmg_checksum']!r}"
+          f" / {b['gmg_checksum']!r}; one process == two: {one}; all-gather"
+          f" == halo: {[r['gather_equal'] for r in lines]}; one-process GMG "
+          f"solve {a.get('one_process_gmg_solve_s', float('nan')):.3f} s",
+          flush=True)
+    bad = []
+    if not (a["iters"] == b["iters"] > 0 and a["gmg_iters"] == b["gmg_iters"]
+            and 1 <= a["gmg_iters"] <= 20):
+        bad.append("iteration counts")
+    if not (a["checksum"] == b["checksum"]
+            and a["gmg_checksum"] == b["gmg_checksum"]):
+        bad.append("checksums differ between ranks")
+    if not (a["local_norm"] != b["local_norm"]
+            and a["gmg_local_norm"] != b["gmg_local_norm"]):
+        bad.append("the ranks hold the same half")
+    if one != {"jacobi": True, "gmg": True}:
+        bad.append("not equal to the one-process solve")
+    if not all(all(r["gather_equal"].values()) for r in lines):
+        bad.append("the all-gather import differs from the halo plan")
+    if not all(r["gmg_true_rel_res"] <= 1.01e-8 for r in lines):
+        bad.append("true residual above 1.01e-8 |b|")
+    if not all(r["ell_launches"] > 0 for r in lines):
+        bad.append("a rank launched no ELL kernel")
+    if not a["n_cells"] == REF_CELLS[2]:
+        bad.append(f"{a['n_cells']} cells, not {REF_CELLS[2]}")
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+    return sum(r["ell_launches"] for r in lines)
+
+
+def phase_multihost():
+    import torch
+    from coulomb_gmg_tpu_torch.parallel.multihost import launch
+    t0 = time.time()
+    lines = launch(["cuda:0", "cuda:0"], "gloo", "8k", MULTIHOST_TIMEOUT)
+    print(f"[multihost gloo] two processes on cuda:0: {time.time() - t0:.2f}"
+          " s", flush=True)
+    ell = check_multihost("multihost gloo", lines)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        t0 = time.time()
+        lines = launch(["cuda:0", "cuda:1"], "nccl", "8k",
+                       MULTIHOST_TIMEOUT)
+        print(f"[multihost nccl] one process per card: "
+              f"{time.time() - t0:.2f} s", flush=True)
+        ell += check_multihost("multihost nccl", lines)
+    else:
+        print(f"[multihost nccl] not run: {n} CUDA card visible, and NCCL "
+              "needs a card per rank (two ranks on one card are refused)",
+              flush=True)
+    return dict.fromkeys(KERNELS, 0) | {"ell_spmv": ell}
+
+
 def main():
     t0 = time.time()
     smi = phase_device()
@@ -890,17 +984,18 @@ def main():
     main8 = phase_device_f64()
     main9 = phase_multi_device()
     main10 = phase_output()
+    main11 = phase_multihost()
     replaces = {"tile_density": "coulomb_gmg_tpu/ops/tile_density.py:179",
                 "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
                 "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45"}
-    # launches: the sum over the main-path runs (phases 4 to 10)
+    # launches: the sum over the main-path runs (phases 4 to 11)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"coulomb_gmg_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name],
          "launches": sum(m[name] for m in (main4, main5, main6, main7,
-                                           main8, main9, main10)),
+                                           main8, main9, main10, main11)),
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
                      "exact_gradient")]}

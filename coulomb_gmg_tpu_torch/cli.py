@@ -18,6 +18,22 @@ kernels' plain versions.  Nothing falls back to the CPU.
 ``--no-density-tiles`` takes the mask or list density instead of the tile
 kernel; ``--profile DIR`` writes a ``torch.profiler`` trace of the run to
 ``DIR/trace.json`` (Chrome / Perfetto format).
+
+``--distributed`` joins a ``torch.distributed`` process group before the
+run, from the environment that ``torchrun`` sets (``MASTER_ADDR``,
+``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``;
+utils/platform.py:init_distributed), as the JAX CLI calls
+``jax.distributed.initialize``.  The device then defaults to
+``cuda:LOCAL_RANK`` and the log prints on rank 0 only.  The backend is
+``gloo`` for ``--device cpu`` and ``nccl`` on the cards, one card per rank
+(more ranks than cards raise).  Each rank runs the configuration's
+``Simulation``; ``n_devices > 1`` over several ranks raises, since the SPMD
+pipeline runs in one process (the sharded solvers across processes:
+``python -m coulomb_gmg_tpu_torch.parallel.multihost``).  With
+``--profile`` each rank writes ``DIR/trace.rank<r>.json``::
+
+    torchrun --nproc-per-node 2 -m coulomb_gmg_tpu_torch.cli \
+        --production 10 --distributed
 """
 
 from __future__ import annotations
@@ -34,8 +50,9 @@ def main(argv=None):
     ap.add_argument("prm", nargs="?", help="deal.II-style .prm parameter file")
     ap.add_argument("--production", type=int, metavar="N",
                     help="the published scaling study on 8*N^3 NaCl atoms")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device, e.g. cuda (default), cuda:0 or cpu")
+    ap.add_argument("--device", default=None,
+                    help="torch device, e.g. cuda (default; cuda:LOCAL_RANK "
+                         "with --distributed), cuda:0 or cpu")
     ap.add_argument("--cycles", type=int, default=None,
                     help="override number of adaptive cycles")
     ap.add_argument("--float64", action="store_true",
@@ -49,10 +66,33 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler trace of the run to "
                          "DIR/trace.json (Chrome/Perfetto format)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a torch.distributed process group from the "
+                         "torchrun environment (MASTER_ADDR, MASTER_PORT, "
+                         "RANK, WORLD_SIZE, LOCAL_RANK)")
     args = ap.parse_args(argv)
     if (args.prm is None) == (args.production is None):
         ap.error("give either a .prm file or --production N")
 
+    if not args.distributed:
+        return _run(args, args.device or "cuda", None, "trace.json")
+    import torch
+    import torch.distributed as dist
+    from coulomb_gmg_tpu_torch.utils.logging import Pcout
+    from coulomb_gmg_tpu_torch.utils.platform import init_distributed
+    on_cpu = args.device is not None and torch.device(args.device).type \
+        == "cpu"
+    device = init_distributed(backend="gloo" if on_cpu else None,
+                              device=args.device)
+    rank = dist.get_rank()
+    try:
+        return _run(args, device, Pcout(enabled=rank == 0),
+                    f"trace.rank{rank}.json")
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device, pcout, trace_name) -> int:
     from coulomb_gmg_tpu_torch.config import load_prm, production_scaling_config
     from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
     from coulomb_gmg_tpu_torch.driver import Simulation
@@ -75,7 +115,7 @@ def main(argv=None):
     else:
         cfg = load_prm(args.prm, **overrides)
         atoms = None
-    sim = Simulation(cfg, atoms=atoms, device=args.device)
+    sim = Simulation(cfg, atoms=atoms, device=device, pcout=pcout)
     if not args.profile:
         sim.run()
         return 0
@@ -86,7 +126,7 @@ def main(argv=None):
     with torch.profiler.profile(activities=acts) as prof:
         sim.run()
     os.makedirs(args.profile, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    prof.export_chrome_trace(os.path.join(args.profile, trace_name))
     return 0
 
 

@@ -67,6 +67,7 @@ from coulomb_gmg_tpu_torch.mesh.dofs import restrict_to_vertices
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch.ops.q1 import element_tables
 from coulomb_gmg_tpu_torch.utils.logging import Pcout, sci10, fix10
+from coulomb_gmg_tpu_torch.utils.platform import world_size
 from coulomb_gmg_tpu_torch.utils.timer import TimerOutput
 from coulomb_gmg_tpu_torch.models import problems as P
 from coulomb_gmg_tpu_torch.ops.density import (
@@ -127,6 +128,12 @@ class Simulation:
                             and self.dtype == torch.float32))
         self.spmd = None
         if cfg.n_devices > 1:
+            if world_size() > 1:
+                raise NotImplementedError(
+                    f"n_devices={cfg.n_devices} across {world_size()} "
+                    "processes: the SPMD pipeline runs in one process "
+                    "(parallel/spmd.py); across processes only the sharded "
+                    "solvers run (parallel/multihost.py)")
             self.spmd = SpmdContext(cfg.n_devices, spmd_devices)
             self.use_tpu_cg = False
         self.device_ops = self.device_ops_active()

@@ -11,6 +11,7 @@ stay bit-exact and ``expf`` keeps its IEEE rounding.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -44,16 +45,24 @@ def build(name: str) -> str:
     missing or stale; returns the library path."""
     src = os.path.join(CSRC, name + ".cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.isfile(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    fresh = lambda: (os.path.isfile(so)
+                     and os.path.getmtime(so) >= os.path.getmtime(src))
+    if fresh():
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.time()
-    p = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                       capture_output=True, text=True)
-    if p.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{p.stderr}")
-    os.replace(tmp, so)
+    # one process builds while the others wait; a library appears whole
+    # (os.replace), never half-written
+    with open(so + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if fresh():
+            return so
+        tmp = f"{so}.{os.getpid()}.tmp"
+        t0 = time.time()
+        p = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                           capture_output=True, text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{p.stderr}")
+        os.replace(tmp, so)
     BUILD_LOG[name] = {"seconds": time.time() - t0, "ptxas": p.stderr}
     return so
 

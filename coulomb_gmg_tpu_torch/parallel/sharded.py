@@ -17,7 +17,14 @@ and scalar all-reduces inside CG (src/step-50.cc:653-657, 831-832):
   (:func:`halo_import`); with ``halo=False`` every shard gathers the whole
   vector instead (the JAX module's all_gather oracle);
 * dot products are per-shard partials summed in shard order
-  (``SpmdContext.psum``).
+  (``SpmdContext.psum``);
+* across processes (an ``SpmdContext`` with a process group) each rank
+  holds only its own shards, as each JAX process materializes only its
+  addressable shards: the host plans are built on every rank from the
+  global column lists, every per-shard list holds the local shards, and
+  the ghosts that another rank owns arrive in one ``all_to_all_single``
+  per import (``SpmdContext.exchange``), each at the place the
+  one-process plan gives it.
 """
 
 from __future__ import annotations
@@ -36,10 +43,11 @@ def round_up(x: int, m: int) -> int:
 
 
 def put_blocks(a, ctx, dtype: Optional[torch.dtype] = None) -> list:
-    """(D, ...) host array -> one tensor per shard, on the shard's device."""
+    """(D, ...) host array -> one tensor per local shard, on the shard's
+    device."""
     a = np.asarray(a)
     out = []
-    for d, dev in enumerate(ctx.devices):
+    for d, dev in zip(ctx.shards, ctx.devices):
         t = torch.from_numpy(np.ascontiguousarray(a[d])).to(dev)
         out.append(t if dtype is None else t.to(dtype))
     return out
@@ -109,7 +117,7 @@ class HaloPlan:
     need: List[List[np.ndarray]]
     cols_local: List[np.ndarray]
     gather: bool = False
-    _send: dict = None
+    _routes: "_Routes" = None
 
     @staticmethod
     def build(cols: List[np.ndarray], block: int, n_dev: int,
@@ -133,39 +141,94 @@ class HaloPlan:
                                        block + np.searchsorted(ghosts, c)))
         return HaloPlan(block=block, need=need, cols_local=cols_local)
 
-    def send(self, ctx) -> dict:
-        """(s, d) -> the local indices into shard s's block that shard d
-        reads, on shard s's device (built once)."""
-        if self._send is None:
-            self._send = {
-                (s, d): torch.from_numpy(ids - s * self.block).to(
-                    ctx.devices[s])
-                for d, per in enumerate(self.need)
-                for s, ids in enumerate(per) if len(ids)}
-        return self._send
+    def routes(self, ctx) -> "_Routes":
+        """The index sets of this rank's imports under ``ctx`` (built
+        once)."""
+        if self._routes is None:
+            self._routes = _Routes.build(self, ctx)
+        return self._routes
+
+
+@dataclass
+class _Routes:
+    """One rank's part of a :class:`HaloPlan`, fixed once.
+
+    local[(s, d)]: indices into local shard s's block that local shard d
+    reads, on s's device; send[q]: the (s, indices) pieces of the message
+    to rank q, in (d, s) order; recv[r]: the (d, s, size) pieces of the
+    message from rank r, in the same order; ``cross``: whether any rank
+    imports from another (the same answer on every rank)."""
+
+    local: dict
+    send: list
+    recv: list
+    cross: bool
+
+    @staticmethod
+    def build(plan: "HaloPlan", ctx) -> "_Routes":
+        D, W, per = ctx.D, ctx.W, ctx.D // ctx.W
+        dev = dict(zip(ctx.shards, ctx.devices))
+        rank_of = lambda d: d // per
+        ids = lambda s, d: torch.from_numpy(
+            plan.need[d][s] - s * plan.block).to(dev[s])
+        local, send = {}, [[] for _ in range(W)]
+        recv = [[] for _ in range(W)]
+        cross = False
+        for d in range(D):
+            for s in range(D):
+                n = len(plan.need[d][s])
+                if not n:
+                    continue
+                if rank_of(s) != rank_of(d):
+                    cross = True
+                if s in dev and d in dev:
+                    local[(s, d)] = ids(s, d)
+                elif s in dev:
+                    send[rank_of(d)].append((s, ids(s, d)))
+                elif d in dev:
+                    recv[rank_of(s)].append((d, s, n))
+        return _Routes(local=local, send=send, recv=recv, cross=cross)
 
 
 def halo_import(xs: list, plan: HaloPlan, ctx) -> list:
     """Per-shard local blocks -> per-shard extended vectors
     ``[own | ghosts]``: each ghost is an ``index_select`` from the owning
-    shard's tensor (the whole vector when ``plan.gather``)."""
+    shard's tensor, received from its rank when another rank owns it (the
+    whole vector when ``plan.gather``)."""
     if plan.gather:
         return ctx.all_gather(xs)
-    send = plan.send(ctx)
+    rt = plan.routes(ctx)
+    x_of = dict(zip(ctx.shards, xs))
+    ghosts = {}
+    if rt.cross:
+        msgs = [torch.cat([x_of[s].index_select(0, i).to(ctx.devices[0])
+                           for s, i in pieces]) if pieces else xs[0][:0]
+                for pieces in rt.send]
+        got = ctx.exchange(msgs, [sum(n for _, _, n in p) for p in rt.recv])
+        for buf, pieces in zip(got, rt.recv):
+            for (d, s, _), g in zip(pieces, buf.split(
+                    [n for _, _, n in pieces])):
+                ghosts[(s, d)] = g
     out = []
-    for d, x in enumerate(xs):
-        parts = [x] + [xs[s].index_select(0, send[(s, d)]).to(x.device)
-                       for s in range(ctx.D) if (s, d) in send]
+    for d, x in zip(ctx.shards, xs):
+        parts = [x]
+        for s in range(ctx.D):
+            if (s, d) in rt.local:
+                parts.append(x_of[s].index_select(0, rt.local[(s, d)]).to(
+                    x.device))
+            elif (s, d) in ghosts:
+                parts.append(ghosts[(s, d)].to(x.device))
         out.append(torch.cat(parts) if len(parts) > 1 else x)
     return out
 
 
 def shard_ells(rows_local, cols_local, data, block: int, ctx,
                dtype: torch.dtype) -> list:
-    """Per-shard transposed (K, block) ELL pairs on the shards' devices."""
-    return [ELL.from_coo(r, c, v, block).device(dev, dtype)
-            for r, c, v, dev in zip(rows_local, cols_local, data,
-                                    ctx.devices)]
+    """Per-local-shard transposed (K, block) ELL pairs on the shards'
+    devices, from the lists of all D shards."""
+    return [ELL.from_coo(rows_local[d], cols_local[d], data[d],
+                         block).device(dev, dtype)
+            for d, dev in zip(ctx.shards, ctx.devices)]
 
 
 def apply_ells(ells: list, ext: list) -> list:

@@ -23,7 +23,14 @@ coarse solve; src/step-50.cc:722-731, 938-1017, 962-967):
   Here level 0's defect is gathered and the same CG runs ONCE PER DISTINCT
   PHYSICAL DEVICE on the whole level-0 operator, each shard taking its own
   block of the result: shards that share a device (the one-card runs) do
-  not repeat it.
+  not repeat it.  Across processes each rank gathers the level-0 defect
+  and solves it redundantly, as JAX solves it on every device
+  (coulomb_gmg_tpu/parallel/sharded.py:16-17).
+
+Across processes (an ``SpmdContext`` with a process group) every rank
+builds the host plans of all D shards from the same operators and keeps
+the ELLs of its own shards; :meth:`ShardedGMG.solve_global` returns the
+local blocks and :meth:`ShardedGMG.solve` the full solution on every rank.
 
 The outer CG and the coarse CG are host loops that read one scalar per
 iteration.  The JAX module's single shard_map executable, its padded
@@ -136,10 +143,13 @@ class ShardedGMG:
             lmax = (_power_lmax(A, inv, nl) * 1.05 if l > 0 and nl > 1
                     else 2.0)     # level 0 is solved by the coarse CG
             lmin = lmax / smoothing_range
+            if l == 0:
+                inv0 = inv
             lv = _Level(block=blk,
                         inv_diag=[torch.from_numpy(inv[d * blk:(d + 1) * blk]
                                                    ).to(dev)
-                                  for d, dev in enumerate(ctx.devices)],
+                                  for d, dev in zip(ctx.shards,
+                                                    ctx.devices)],
                         theta=float(self.np_dtype(0.5 * (lmax + lmin))),
                         delta=float(self.np_dtype(0.5 * (lmax - lmin))))
             specs, names = [(*cast(_coo(A)), blk)], ["A"]
@@ -176,11 +186,11 @@ class ShardedGMG:
         for lv, e in zip(self.levels, ells[1:]):
             lv.copy_to = e
 
-        # ---- the whole level-0 operator once per distinct device (coarse)
-        A0, lv0 = gmg.matrices[0], self.levels[0]
-        n0 = lv0.block * D
-        e0 = ELL.from_coo(*cast(_coo(A0)), n0)
-        inv0 = torch.cat([t.cpu() for t in lv0.inv_diag])
+        # ---- the whole level-0 operator once per distinct local device
+        # (coarse)
+        e0 = ELL.from_coo(*cast(_coo(gmg.matrices[0])),
+                          self.levels[0].block * D)
+        inv0 = torch.from_numpy(inv0)
         self._coarse_ops = {dev: (e0.device(dev, dtype), inv0.to(dev))
                             for dev in ctx.unique_devices}
 
@@ -218,19 +228,19 @@ class ShardedGMG:
     def _coarse_solve(self, d0: list) -> list:
         """Jacobi-preconditioned CG on the gathered level-0 defect to
         ``coarse_rtol`` (relative) or ``coarse_maxiter`` iterations, once
-        per distinct device; each shard takes its block."""
+        per distinct local device; each shard takes its block."""
         ctx, blk = self.ctx, self.levels[0].block
-        full = ctx.all_gather(d0)
+        full = ctx.all_gather(d0, "coarse")
         sol = {}
-        for d, dev in enumerate(ctx.devices):
+        for i, dev in enumerate(ctx.devices):
             if dev not in sol:
                 (cols, vals), inv = self._coarse_ops[dev]
-                sol[dev], k = _jacobi_cg(cols, vals, inv, full[d],
+                sol[dev], k = _jacobi_cg(cols, vals, inv, full[i],
                                          self.coarse_rtol,
                                          self.coarse_maxiter)
         self.coarse_iterations.append(k)
         return [sol[dev][d * blk:(d + 1) * blk]
-                for d, dev in enumerate(ctx.devices)]
+                for d, dev in zip(ctx.shards, ctx.devices)]
 
     def vcycle(self, g: list) -> list:
         """One V-cycle on the per-shard global defect ``g``."""
@@ -269,8 +279,8 @@ class ShardedGMG:
     # ------------------------------------------------------------------
 
     def solve_global(self, rhs, x0=None, rtol: float = 1e-8):
-        """Sharded solve: returns (x as per-shard blocks, iters, |r0|,
-        |r|)."""
+        """Sharded solve: returns (x as per-local-shard blocks, iters,
+        |r0|, |r|)."""
         ctx = self.ctx
         b = np.zeros(self.n_pad, self.np_dtype)
         b[: self.n] = np.asarray(rhs, self.np_dtype)
@@ -280,7 +290,7 @@ class ShardedGMG:
         tol = float(self.np_dtype(rtol * np.linalg.norm(b)))
         blk = self.block
         put = lambda a: [torch.from_numpy(a[d * blk:(d + 1) * blk]).to(dev)
-                         for d, dev in enumerate(ctx.devices)]
+                         for d, dev in zip(ctx.shards, ctx.devices)]
         bs, x = put(b), put(x0p)
 
         def sys_mv(v):
@@ -307,10 +317,10 @@ class ShardedGMG:
         return x, k, res0, res
 
     def solve(self, rhs, x0=None, rtol: float = 1e-8):
-        """numpy in / numpy out; returns (x (n,) float64, iters, |r0|,
-        |r|)."""
+        """numpy in / numpy out, the full solution on every rank; returns
+        (x (n,) float64, iters, |r0|, |r|)."""
         xb, k, res0, res = self.solve_global(rhs, x0, rtol)
-        x = torch.cat([v.cpu() for v in xb]).numpy()[: self.n]
+        x = self.ctx.all_gather(xb)[0].cpu().numpy()[: self.n]
         return x.astype(np.float64), k, res0, res
 
 

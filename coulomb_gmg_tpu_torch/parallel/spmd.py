@@ -15,10 +15,23 @@ process over D shards:
   for D shards on one card, the counterpart of the JAX virtual devices),
   and the default takes one visible CUDA device per shard;
 * the collectives are plain functions of the context, behind a small
-  interface (:meth:`psum`, :meth:`all_gather`, and
+  interface (:meth:`psum`, :meth:`all_gather`, :meth:`exchange`, and
   parallel/sharded.py:halo_import): ``psum`` adds the per-shard partials
   in shard order on the first shard's device and broadcasts the sum, with
   no atomics, so every sum is the same from run to run;
+* across processes (``group``, a ``torch.distributed`` process group of W
+  ranks; JAX's multi-process mesh, tests/test_multihost.py): rank r owns
+  the D / W shards ``[r D / W, (r + 1) D / W)`` (``shards``), ``devices``
+  names only those, and every per-shard list of the solvers holds only
+  them.  ``psum`` gathers all D partials in shard order on every rank and
+  folds them as one process does, so every rank holds the same bits, and
+  those of the one-process D-shard run (never ``all_reduce``, whose order
+  of additions is the backend's).  Under gloo a CUDA tensor is staged
+  through host memory: the copies are the transport.  Only the solvers
+  run across processes (parallel/sharded.py, parallel/sharded_gmg.py):
+  the pipeline stages below raise there, as the JAX stages fail
+  (coulomb_gmg_tpu/parallel/spmd.py:157 fetches arrays that span other
+  processes' devices);
 * the stages: the density (the mask, list and all-atom branches per shard,
   plain PyTorch as in the JAX module; the all-atom branch does not call
   the dense-density kernel, JAX's does not call its Pallas twin either),
@@ -30,6 +43,9 @@ process over D shards:
 """
 
 from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -46,12 +62,45 @@ from coulomb_gmg_tpu_torch.postprocess.energy import (electrostatic_energy,
                                                       point_values)
 
 
+@dataclass
+class CommStats:
+    """What this rank's collectives moved across processes, by kind
+    ("psum", "gather", "halo", or a caller's tag such as "coarse"): calls,
+    bytes sent to other ranks, and host seconds inside the
+    ``torch.distributed`` calls, waits for the other ranks included (under
+    NCCL the enqueue only).  The staging copies are left out: a copy from
+    the card to the host also waits for the rank's queued kernels."""
+
+    calls: dict = field(default_factory=dict)
+    bytes: dict = field(default_factory=dict)
+    seconds: dict = field(default_factory=dict)
+
+    def add(self, kind: str, nbytes: int, seconds: float) -> None:
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
+        self.seconds[kind] = self.seconds.get(kind, 0.0) + seconds
+
+
 class SpmdContext:
     """D shards, their devices, the cell partition and the sharded
-    pipeline stages."""
+    pipeline stages; with a process ``group`` of W ranks, this rank's
+    D / W shards."""
 
-    def __init__(self, n_devices: int, devices=None):
+    def __init__(self, n_devices: int, devices=None, group=None):
+        self.D = int(n_devices)
+        self.group = group
+        self.W = 1 if group is None else int(group.size())
+        self.rank = 0 if group is None else int(group.rank())
+        if self.D % self.W:
+            raise ValueError(f"{self.D} shards do not split over "
+                             f"{self.W} ranks")
+        n_local = self.D // self.W
+        self.shards = list(range(self.rank * n_local,
+                                 (self.rank + 1) * n_local))
         if devices is None:
+            if self.W > 1:
+                raise ValueError("list this rank's shards' devices, e.g. "
+                                 f"['cuda:0'] * {n_local}")
             n = torch.cuda.device_count() if torch.cuda.is_available() else 0
             if n < n_devices:
                 raise RuntimeError(
@@ -59,12 +108,21 @@ class SpmdContext:
                     f"devices are visible (list the shards' devices, e.g. "
                     f"['cuda:0'] * {n_devices} or ['cpu'] * {n_devices})")
             devices = [f"cuda:{i}" for i in range(n_devices)]
-        if len(devices) != n_devices:
-            raise ValueError(f"{len(devices)} devices for {n_devices} "
+        if len(devices) != n_local:
+            raise ValueError(f"{len(devices)} devices for {n_local} "
                              "shards")
-        self.D = int(n_devices)
         self.devices = [resolve(d) for d in devices]
         self.unique_devices = list(dict.fromkeys(self.devices))
+        self.stats = CommStats()
+        self._backend = None
+
+    def _single_process(self, stage: str) -> None:
+        if self.W > 1:
+            raise NotImplementedError(
+                f"SpmdContext.{stage} runs in one process only: across "
+                f"{self.W} processes only the sharded solvers run (the JAX "
+                "pipeline stages fail there too, coulomb_gmg_tpu/parallel/"
+                "spmd.py:157)")
 
     # ------------------------------------------------------ cell partition
 
@@ -85,25 +143,70 @@ class SpmdContext:
 
     # ---------------------------------------------------------- collectives
 
+    @property
+    def comm_device(self) -> torch.device:
+        """Where messages to other ranks are assembled: the host under
+        gloo (the staging buffers), this rank's card under NCCL."""
+        if self._backend is None:
+            self._backend = torch.distributed.get_backend(self.group)
+        if self._backend == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def _gather_ranks(self, local: torch.Tensor, kind: str) -> list:
+        """Every rank's ``local`` (the same shape on every rank), in rank
+        order, on this rank's first shard's device."""
+        buf = local.to(self.comm_device).contiguous()
+        out = [torch.empty_like(buf) for _ in range(self.W)]
+        t0 = time.perf_counter()
+        torch.distributed.all_gather(out, buf, group=self.group)
+        self.stats.add(kind, buf.numel() * buf.element_size()
+                       * (self.W - 1), time.perf_counter() - t0)
+        return [o.to(self.devices[0]) for o in out]
+
     def broadcast(self, t: torch.Tensor) -> list:
-        """One copy of ``t`` per shard, on its device (shards that share a
-        device share the copy)."""
+        """One copy of ``t`` per local shard, on its device (shards that
+        share a device share the copy)."""
         copies = {dev: t.to(dev) for dev in self.unique_devices}
         return [copies[dev] for dev in self.devices]
 
     def psum(self, parts: list) -> list:
         """Sum of the per-shard partials, added in shard order on the first
-        shard's device, on every shard."""
+        shard's device, on every shard (across ranks: all D partials
+        gathered first, so every rank folds the same sum)."""
+        if self.W > 1:
+            local = torch.stack([p.to(self.devices[0]) for p in parts])
+            parts = [row for g in self._gather_ranks(local, "psum")
+                     for row in g.unbind(0)]
         acc = parts[0].to(self.devices[0])
         for p in parts[1:]:
             acc = acc + p.to(acc.device)
         return self.broadcast(acc)
 
-    def all_gather(self, parts: list) -> list:
+    def all_gather(self, parts: list, kind: str = "gather") -> list:
         """The shards' blocks concatenated in shard order, on every
-        shard."""
-        return self.broadcast(torch.cat([p.to(self.devices[0])
-                                         for p in parts]))
+        shard (across ranks every shard's block must have one shape)."""
+        full = torch.cat([p.to(self.devices[0]) for p in parts])
+        if self.W > 1:
+            full = torch.cat(self._gather_ranks(full, kind))
+        return self.broadcast(full)
+
+    def exchange(self, sends: list, recv_sizes: list) -> list:
+        """Point-to-point messages between the ranks (the halo imports),
+        one ``all_to_all_single``: ``sends[q]`` (1-D) goes to rank q, and
+        the result's ``[q]`` is the ``recv_sizes[q]`` values from rank q,
+        on this rank's first shard's device.  The message to itself is
+        empty."""
+        dev = self.comm_device
+        buf = torch.cat([s.to(dev) for s in sends])
+        out = torch.empty(sum(recv_sizes), dtype=buf.dtype, device=dev)
+        t0 = time.perf_counter()
+        torch.distributed.all_to_all_single(
+            out, buf, output_split_sizes=list(recv_sizes),
+            input_split_sizes=[len(s) for s in sends], group=self.group)
+        self.stats.add("halo", buf.numel() * buf.element_size(),
+                       time.perf_counter() - t0)
+        return list(out.to(self.devices[0]).split(list(recv_sizes)))
 
     # ---------------------------------------------------- sharded density
 
@@ -113,6 +216,7 @@ class SpmdContext:
         509-575 loops the locally owned cells): the mask, list or all-atom
         branch of ops/density.py:compute_density in ``dtype``.  Returns
         (n_cells, n_q) on the first shard's device."""
+        self._single_process("density")
         n = forest.n_cells
         parts = [compute_density(forest, points_ref, positions, charges,
                                  r_c, dev, mask=mask, lists=lists,
@@ -129,6 +233,7 @@ class SpmdContext:
         result is bit-identical to the single-device tile density and
         needs no reduction.  Returns (n_cells, n_q) float32 on the first
         shard's device."""
+        self._single_process("density_tiles")
         n_q = len(points_ref)
         C = forest.n_cells
         if len(positions) == 0:
@@ -164,6 +269,7 @@ class SpmdContext:
         through postprocess/energy.py (the exact-gradient kernel in
         float32 on the card), the partials summed by ``psum`` (the
         reference's MPI sum, src/step-50.cc:1459)."""
+        self._single_process("energy_norm_error")
         n = forest.n_cells
         parts = [energy_norm_error_sq(forest, tables, u, positions, charges,
                                       r_c, dev, dtype=dtype,
@@ -180,6 +286,7 @@ class SpmdContext:
         cell by gather, and ``psum`` adds the shards' partials
         (src/step-50.cc:1020-1090 estimates locally owned cells per
         rank)."""
+        self._single_process("estimate")
         dim = forest.dim
         if cell2dof.shape[1] != 2 ** dim:
             raise ValueError("the sharded estimator is Q1-only")
@@ -251,6 +358,7 @@ class SpmdContext:
         ``compress(add)`` of src/step-50.cc:831-832.
 
         Returns fn(h, coeff_q, rho_q) -> (data (nnz,), rhs (n,)) numpy."""
+        self._single_process("build_assembler")
         D = self.D
         nnz = plan.pattern.nnz
         n = plan.pattern.n_rows
@@ -335,6 +443,7 @@ def electrostatic_energy_spmd(spmd: SpmdContext, forest, u, positions,
     potential is evaluated by the shard owning the cell that contains it,
     and the atom count is cross-checked (the all_gather and lowest-rank
     dedup of src/step-50.cc:1334-1398)."""
+    spmd._single_process("electrostatic_energy_spmd")
     positions = np.asarray(positions)
     atom_owner = spmd.owners(forest.n_cells)[locate_cells(forest, positions)]
     phi = np.zeros(len(charges))

@@ -28,7 +28,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 for name in ("driver", "io.vtu", "io.gnuplot", "parallel.sharded",
-             "parallel.sharded_gmg", "parallel.spmd"):
+             "parallel.sharded_gmg", "parallel.spmd", "parallel.multihost",
+             "utils.platform"):
     assert "coulomb_gmg_tpu_torch." + name in sys.modules, name
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 ref = sorted(m for m in sys.modules if m == "coulomb_gmg_tpu"
