@@ -45,7 +45,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``examples/step-16.prm`` in float32 (tile density, ``TpuGMG`` with
    ``solve_refined``) and the same file with the Jacobi preconditioner
    (``tpu_cg_solve``), cells and CG held to JAX CPU runs of the same
-   configurations;
+   configurations; then the replay and read times of the stepped solve's
+   graphs on the last Step16 hierarchy (its coarse CG);
 8. the device-operator path in float64 at full width:
    ``production_scaling_config(10, dtype="float64", device_operators="on",
    solver_backend="tpu_cg")`` (the JAX eligibility needs ``use_tpu_cg``,
@@ -86,14 +87,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    prints each rank's wall, solve seconds, CG count, halo and coarse-gather
    bytes per V-cycle, seconds in collectives and peak memory.  With two or
    more cards the same run is made with NCCL, one rank per card;
-   otherwise one line says why not.
+   otherwise one line says why not;
+12. fused: the 8,000-atom float32 production run once with
+   ``solve_fused=False`` (the eager loops, one host read per CG iteration)
+   and once with the default ``solve_fused=True`` (solver/fused.py: each
+   solve a start and step CUDA graph captured once per cycle, one read of
+   the solve's state per replay batch), the way phases 4 to 11 now run.
+   The two runs must give the same CG count in every refinement pass and
+   the same bits in every cycle's solution, the graph run must launch the
+   ELL kernel as often as the eager run plus its warm-ups (one eager run
+   of every graph's body a cycle, before the capture), and every graph
+   solve must make at most ``k + 2`` host reads.  It prints the counts,
+   warm-up launches, reads per solve, capture and instantiate seconds per
+   cycle, "Solve" seconds and peak device memory of both, the size of the
+   last cycle's graph memory pool, and its step's replay and read times.
 
-The line before the last is the kernels' JSON record (launches summed over
-phases 4 to 11, phase 11's from both workers); the last line is
+Each phase prints its seconds.  The line before the last is the kernels'
+JSON record (launches summed over phases 4 to 12, phase 11's from both
+workers, the graph solves' warm-ups included); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import base64
+import gc
 import json
 import os
 import subprocess
@@ -109,6 +125,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 ATOMS_N = 10                       # 8 * 10^3 = 8,000 atoms
 REF_CELLS = [512000, 512560, 523592, 543024, 576428]   # bench.py:65-72
+REF_CELLS_64K = [1728000, 1728560, 1749672, 1785904, 1849296]
 # Regression anchors from the port's earlier runs on the H100 (both paths
 # gave these CG counts in every run; the FE errors are phase 5's, identical
 # to ten digits across runs): a kernel change that keeps the arithmetic
@@ -652,19 +669,44 @@ def phase_routes():
                 if not r["residual"] <= 1.01e-8 * r["l2_rhs"]:
                     raise AssertionError(f"{tag} cycle {r['cycle']}: "
                                          f"residual {r['residual']:.3e}")
+            coarse_costs(sim)
     return total
 
 
-def run_study(tag, cfg, **sim_kw):
-    """One 8,000-atom run through Simulation: prints every cycle and the
-    run's totals, checks the published cells and the true float64
-    residual; returns (sim, results, launches)."""
+def coarse_costs(sim):
+    """The stepped solve's graphs on the last Step16 hierarchy (its coarse
+    CG on level 0): capture seconds, and the replay and read times behind
+    solver/fused.py's one coarse replay per read."""
+    from coulomb_gmg_tpu_torch.solver.tpu_gmg import TpuGMG
+    t0 = time.time()
+    g = TpuGMG(sim.gmg, sim.A, sim.forest, "cuda", use_dst=False)
+    try:
+        _, k, _, _ = g.solve(sim.rhs, None, rtol=1e-6, maxiter=100)
+        st = g.stepped
+        seg = st.segments
+        costs = replay_ms(st, ("coarse",), st.coarse.active)
+        costs.update(replay_ms(st, ("step_head", "step_tail"), st.active))
+        print(f"[step16 f32] stepped solve on the last hierarchy: CG {k}, "
+              f"level 0 {st.coarse.x.numel() - 1} dofs, capture "
+              f"{seg.capture_s:.4f} s, instantiate {seg.instantiate_s:.4f} s;"
+              f" replay ms: " + ", ".join(f"{n} {v:.4f}" for n, v in
+                                          costs.items())
+              + f"; {time.time() - t0:.2f} s in all", flush=True)
+    finally:
+        g.release()
+
+
+def run_study(tag, cfg, n=ATOMS_N, cells=REF_CELLS, **sim_kw):
+    """One run of the 8 n^3-atom lattice (8,000 atoms by default) through
+    Simulation: prints every cycle and the run's totals, checks the
+    published ``cells`` and the true float64 residual; returns (sim,
+    results, launches)."""
     import torch
     from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
     from coulomb_gmg_tpu_torch.utils.logging import Pcout
     from coulomb_gmg_tpu_torch.driver import Simulation
     from coulomb_gmg_tpu_torch.ops import ell
-    sim = Simulation(cfg, atoms=nacl_lattice(ATOMS_N), device="cuda",
+    sim = Simulation(cfg, atoms=nacl_lattice(n), device="cuda",
                      pcout=Pcout(enabled=False), **sim_kw)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -684,9 +726,9 @@ def run_study(tag, cfg, **sim_kw):
     print(f"[{tag}] wall {wall:.2f} s; CG {cg}; launches {launches} (ELL "
           f"float64 {f64}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    cells = [r["n_cells"] for r in res]
-    if cells != REF_CELLS:
-        raise AssertionError(f"{tag}: cells {cells} != {REF_CELLS}")
+    got = [r["n_cells"] for r in res]
+    if got != cells:
+        raise AssertionError(f"{tag}: cells {got} != {cells}")
     for r in res:
         if not r["residual"] <= 1.01e-8 * r["l2_rhs"]:
             raise AssertionError(f"{tag} cycle {r['cycle']}: residual "
@@ -971,35 +1013,188 @@ def phase_multihost():
     return dict.fromkeys(KERNELS, 0) | {"ell_spmv": ell}
 
 
+def replay_ms(stepped, names, flag):
+    """Milliseconds of one replay of each named graph of a stepped solve,
+    and of one read of ``flag`` (the solve's or the coarse CG's).  The
+    replays overwrite the solve's state: call it after its result is
+    taken."""
+    import torch
+    seg = stepped.segments
+
+    def per_call(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n
+    out = {name: per_call(seg.graphs[name].replay, 50) for name in names}
+    out["read"] = per_call(flag.tolist, 200)
+    return out
+
+
+def fused_run(fused, n, cells):
+    """One float32 production run of the 8 n^3-atom lattice with
+    ``solve_fused=fused``; records every cycle's solution and, per solve,
+    its CG count, host reads and the cycle's capture seconds."""
+    import torch
+    from coulomb_gmg_tpu_torch.config import production_scaling_config
+    from coulomb_gmg_tpu_torch.solver.cg import to_host
+    from coulomb_gmg_tpu_torch.solver.device_gmg import StencilGMG
+    cfg = production_scaling_config(n, dtype="float32", solve_fused=fused)
+    solves = []
+    plain_solve = StencilGMG.solve
+
+    def captured(self):
+        seg = self.stepped.segments if self.stepped is not None else None
+        return ((seg.capture_s, seg.instantiate_s,
+                 seg.warmup.get("launches", 0)) if seg else (0.0, 0.0, 0))
+
+    def solve(self, *a, **kw):
+        r0, c0 = to_host.reads, captured(self)
+        out = plain_solve(self, *a, **kw)
+        c1 = captured(self)
+        solves.append(dict(k=out[1], reads=to_host.reads - r0,
+                           graphs=self.stepped is not None,
+                           capture_s=c1[0] - c0[0],
+                           instantiate_s=c1[1] - c0[1],
+                           warmup=c1[2] - c0[2],
+                           peak=torch.cuda.max_memory_allocated() / 2**30))
+        return out
+
+    StencilGMG.solve = solve
+    try:
+        sim, res, launches, _ = run_study(f"fused={fused}", cfg, n, cells)
+    finally:
+        StencilGMG.solve = plain_solve
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return dict(sim=sim, res=res, launches=launches, solves=solves,
+                peak=peak, solve_s=sum(r["stages"]["Solve"] for r in res))
+
+
+def record_solutions(sim_cls):
+    """Patch ``sim_cls.solve`` to keep a copy of every cycle's solution;
+    returns the list and the function that restores the class."""
+    sols = []
+    plain = sim_cls.solve
+
+    def solve(self):
+        plain(self)
+        sols.append(np.array(self.solution, copy=True))
+    sim_cls.solve = solve
+    return sols, lambda: setattr(sim_cls, "solve", plain)
+
+
+def phase_fused(n=ATOMS_N):
+    """Phase 12 at 8,000 atoms; ``phase_fused(20)`` makes the same
+    comparison at 64,000 atoms (without the 8k CG anchors)."""
+    import torch
+    from coulomb_gmg_tpu_torch.driver import Simulation
+    cells = REF_CELLS if n == ATOMS_N else REF_CELLS_64K
+    runs = {}
+    for fused in (False, True):
+        sols, restore = record_solutions(Simulation)
+        try:
+            runs[fused] = fused_run(fused, n, cells)
+        finally:
+            restore()
+        runs[fused]["sols"] = sols
+        if not fused:           # free the eager run before the graph run
+            del runs[fused]["sim"]
+            gc.collect()
+    e, g = runs[False], runs[True]
+    for tag, r in (("eager", e), ("graph", g)):
+        cap = " ".join(f"{s['capture_s']:.4f}/{s['instantiate_s']:.4f}"
+                       for s in r["solves"] if s["capture_s"] > 0) or "none"
+        print(f"[fused {tag}] passes {[x['cg_passes'] for x in r['res']]}; "
+              f"reads per solve {[(s['k'], s['reads']) for s in r['solves']]}"
+              f" (k, reads); capture/instantiate s per cycle {cap}; Solve "
+              f"{r['solve_s']:.4f} s; ELL launches {r['launches']['ell_spmv']}"
+              f", of them warm-ups {[s['warmup'] for s in r['solves']]};"
+              f" peak {r['peak']:.3f} GiB, after each solve "
+              f"{[round(s['peak'], 3) for s in r['solves']]}", flush=True)
+    same = [bool(np.array_equal(a, b)) for a, b in zip(e["sols"], g["sols"])]
+    costs = replay_ms(g["sim"].gmg.stepped, ("step",),
+                      g["sim"].gmg.stepped.active)
+    pool = tuple(g["sim"].gmg.stepped.segments.graphs["step"].pool())
+    segs = [sg for sg in torch.cuda.memory_snapshot()
+            if tuple(sg.get("segment_pool_id", ())) == pool]
+    print(f"[fused] the last cycle's graph pool: "
+          f"{sum(sg['total_size'] for sg in segs) / 2**20:.1f} MiB reserved,"
+          f" {sum(sg['allocated_size'] for sg in segs) / 2**20:.1f} MiB "
+          f"allocated", flush=True)
+    g["sim"].gmg.release()
+    print(f"[fused] solutions equal per cycle {same}; Solve eager "
+          f"{e['solve_s']:.4f} s, graph {g['solve_s']:.4f} s; last cycle: "
+          f"step replay {costs['step']:.4f} ms, read {costs['read']:.4f} ms "
+          f"(one replay a read)", flush=True)
+    bad = []
+    if [r["cg_passes"] for r in e["res"]] != [r["cg_passes"] for r in
+                                                g["res"]]:
+        bad.append("CG counts per pass differ")
+    if len(same) != len(REF_CELLS) or not all(same):
+        bad.append("solutions differ")
+    warmup = sum(s["warmup"] for s in g["solves"])
+    if g["launches"] != e["launches"] | {
+            "ell_spmv": e["launches"]["ell_spmv"] + warmup} or warmup <= 0:
+        bad.append(f"launches {g['launches']} != {e['launches']} + "
+                   f"{warmup} ELL warm-ups")
+    if n == ATOMS_N and [r["cg_iterations"] for r in g["res"]] != EARLIER_CG:
+        bad.append("CG counts differ from the earlier runs'")
+    over = [s for s in g["solves"] if s["reads"] > s["k"] + 2]
+    if over or not all(s["graphs"] for s in g["solves"]):
+        bad.append(f"graph solves over their reads or eager: {over}")
+    if sum(s["capture_s"] > 0 for s in g["solves"]) != len(REF_CELLS):
+        bad.append("not one capture per cycle")
+    if any(s["graphs"] for s in e["solves"]):
+        bad.append("the eager run made graphs")
+    if bad:
+        raise AssertionError("fused: " + "; ".join(bad))
+    return {k: e["launches"][k] + g["launches"][k] for k in KERNELS}
+
+
 def main():
     t0 = time.time()
     smi = phase_device()
     import torch
-    phase_build()
-    timing = phase_kernels()
-    main4 = phase_main_path()
-    main5 = phase_bruteforce_fe()
-    main6 = phase_host_f64()
-    main7 = phase_routes()
-    main8 = phase_device_f64()
-    main9 = phase_multi_device()
-    main10 = phase_output()
-    main11 = phase_multihost()
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.time()
+        out = fn()
+        seconds[name] = round(time.time() - t, 2)
+        print(f"[smoke] phase {name}: {seconds[name]:.2f} s", flush=True)
+        return out
+
+    timed("build", phase_build)
+    timing = timed("kernels", phase_kernels)
+    main4 = timed("main path", phase_main_path)
+    main5 = timed("bruteforce fe", phase_bruteforce_fe)
+    main6 = timed("host f64", phase_host_f64)
+    main7 = timed("routes", phase_routes)
+    main8 = timed("device f64", phase_device_f64)
+    main9 = timed("multi device", phase_multi_device)
+    main10 = timed("output", phase_output)
+    main11 = timed("multihost", phase_multihost)
+    main12 = timed("fused", phase_fused)
     replaces = {"tile_density": "coulomb_gmg_tpu/ops/tile_density.py:179",
                 "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
                 "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45"}
-    # launches: the sum over the main-path runs (phases 4 to 11)
+    # launches: the sum over the main-path runs (phases 4 to 12)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"coulomb_gmg_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name],
          "launches": sum(m[name] for m in (main4, main5, main6, main7,
-                                           main8, main9, main10, main11)),
+                                           main8, main9, main10, main11,
+                                           main12)),
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
                      "exact_gradient")]}
-    print(f"[smoke] total {time.time() - t0:.1f} s", flush=True)
+    print(f"[smoke] total {time.time() - t0:.1f} s; phases {seconds}",
+          flush=True)
     print(smi)
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

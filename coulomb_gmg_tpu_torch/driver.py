@@ -323,11 +323,14 @@ class Simulation:
         f = self.forest
         if self.device_ops:
             with self._stage("Assemble Multigrid"):
+                if isinstance(self.gmg, StencilGMG):
+                    self.gmg.release()      # the last cycle's graphs
                 self.gmg = StencilGMG(f, f.dofs_of(1), self.constraints,
                                       self.device, self.dtype,
                                       cache=self._stencil_cache,
                                       coarse_maxiter=cfg.coarse_max_iters,
-                                      coarse_rtol=cfg.coarse_rtol)
+                                      coarse_rtol=cfg.coarse_rtol,
+                                      fused=cfg.solve_fused)
             with self._stage("Assemble system"):
                 self.rhs = self.gmg.assemble_rhs(self.rho.to(self.device),
                                                  self.tab_rhs)
@@ -483,20 +486,25 @@ class Simulation:
                        dtype=self.dtype,
                        use_dst=(cfg.problem == "GaussianCharges"
                                 and cfg.degree == 1),
-                       host_cache=self._tpu_host_cache)
-            if self.dtype == torch.float32 and cfg.cg_rtol < 5e-7:
-                # a float32 CG recurrence saturates near 6e-7 relative:
-                # iterative refinement with a float64 defect
-                return solve_refined(g, self.A, rhs, x0, rtol=cfg.cg_rtol,
-                                     maxiter=cfg.cg_max_iters)
-            x, k, res0, resf = g.solve(rhs, x0, rtol=cfg.cg_rtol,
-                                       maxiter=cfg.cg_max_iters)
-            return x.cpu().numpy().astype(np.float64), k, res0, resf
+                       host_cache=self._tpu_host_cache,
+                       fused=cfg.solve_fused)
+            try:
+                if self.dtype == torch.float32 and cfg.cg_rtol < 5e-7:
+                    # a float32 CG recurrence saturates near 6e-7 relative:
+                    # iterative refinement with a float64 defect
+                    return solve_refined(g, self.A, rhs, x0,
+                                         rtol=cfg.cg_rtol,
+                                         maxiter=cfg.cg_max_iters)
+                x, k, res0, resf = g.solve(rhs, x0, rtol=cfg.cg_rtol,
+                                           maxiter=cfg.cg_max_iters)
+                return x.cpu().numpy().astype(np.float64), k, res0, resf
+            finally:
+                g.release()
         if self.use_tpu_cg:
             x, k, res0, resf = tpu_cg_solve(
                 self.A.rowids, self.A.indices, self.A.data_np(), rhs, x0,
                 rtol=cfg.cg_rtol, maxiter=cfg.cg_max_iters * 10,
-                device=self.device, dtype=self.dtype)
+                device=self.device, dtype=self.dtype, fused=cfg.solve_fused)
             return x.astype(np.float64), k, res0, resf
         put = lambda a: torch.from_numpy(np.asarray(a)).to(self.device,
                                                            self.dtype)

@@ -8,7 +8,8 @@ host-assembled float64 run), each after a warm-up run on 8 atoms, once
 untraced and once under ``torch.profiler``:
 wall, stage seconds, device busy share, device time by kernel and, for each
 hand kernel, the launches and device time of each of its device functions
-(template instances, the dense density's pre-pass).  Prints
+(template instances, the dense density's pre-pass), beside the launches
+that its wrapper counted in the traced run (``counted``).  Prints
 one line per path and writes them all as JSON to ``--out`` (default
 ``build/measure.json``).  Needs a CUDA card.  Kernel times against their
 plain versions and their bounds are ``chip_smoke.py``'s phase 3.
@@ -27,6 +28,10 @@ import torch
 from coulomb_gmg_tpu_torch.config import production_scaling_config
 from coulomb_gmg_tpu_torch.driver import Simulation
 from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+from coulomb_gmg_tpu_torch.ops.density import dense_density
+from coulomb_gmg_tpu_torch.ops.ell import ell_mv
+from coulomb_gmg_tpu_torch.ops.gradient import exact_gradient
+from coulomb_gmg_tpu_torch.ops.tile_density import tile_density
 from coulomb_gmg_tpu_torch.utils.logging import Pcout
 
 ATOMS_N = 10                      # 8 * 10^3 = 8,000 atoms
@@ -35,22 +40,28 @@ HAND = {"tile_density": ("tile_density_kernel",),
         "ell_spmv": ("ell_spmv_kernel",),
         "dense_density": ("dense_density_kernel", "group_boxes_kernel"),
         "exact_gradient": ("exact_gradient_kernel",)}
+# each hand kernel's wrapper, whose ``launches`` counts its launches
+WRAPPERS = {"tile_density": tile_density, "ell_spmv": ell_mv,
+            "dense_density": dense_density, "exact_gradient": exact_gradient}
 
 
 def _run(n, flags):
     cfg = production_scaling_config(n, **{"dtype": "float32", **flags})
     sim = Simulation(cfg, atoms=nacl_lattice(n), device="cuda",
                      pcout=Pcout(enabled=False))
+    before = {k: fn.launches for k, fn in WRAPPERS.items()}
     t0 = time.time()
     res = sim.run()
     torch.cuda.synchronize()
     wall = time.time() - t0
+    counted = {k: fn.launches - before[k] for k, fn in WRAPPERS.items()}
     stages = {}
     for c in res:
         for k, v in c["stages"].items():
             stages[k] = stages.get(k, 0.0) + v
     return {"wall_s": wall, "cells": [c["n_cells"] for c in res],
-            "cg": [c["cg_iterations"] for c in res], "stages_s": stages}
+            "cg": [c["cg_iterations"] for c in res], "stages_s": stages,
+            "counted": counted}
 
 
 def profile_paths() -> dict:
@@ -70,9 +81,10 @@ def profile_paths() -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
-        hand = {kern: [{"name": e.key[:90], "count": e.count,
-                        "ms": e.self_device_time_total / 1e3}
-                       for e in dev if any(fn in e.key for fn in fns)]
+        hand = {kern: {"counted": traced["counted"][kern], "trace": [
+                    {"name": e.key[:90], "count": e.count,
+                     "ms": e.self_device_time_total / 1e3}
+                    for e in dev if any(fn in e.key for fn in fns)]}
                 for kern, fns in HAND.items()}
         r = {"untraced": untraced, "traced_wall_s": traced["wall_s"],
              "device_busy_ms": busy_ms,

@@ -12,8 +12,9 @@ src/step-50.cc:938-1017):
 
 The JAX module has a traced ``lax.while_loop`` and a host loop with the
 same math.  Here the loop runs on the host and reads one scalar, the
-residual norm, per iteration; the vectors stay on their device.  The
-preconditioner is any callable (Jacobi, the host SSOR sweep, a V-cycle).
+residual norm, per iteration (:func:`to_host`); the vectors stay on their
+device.  The preconditioner is any callable (Jacobi, the host SSOR sweep,
+a V-cycle).  solver/fused.py steps the same arithmetic on the device.
 """
 
 from __future__ import annotations
@@ -21,6 +22,17 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+
+def to_host(t: torch.Tensor):
+    """``t.tolist()``: the value of a small device tensor on the host, one
+    read from the device, counted in ``to_host.reads`` (the solver loops'
+    reads; a CPU tensor counts as well, standing for the card's)."""
+    to_host.reads += 1
+    return t.tolist()
+
+
+to_host.reads = 0
 
 
 class CGResult(NamedTuple):
@@ -37,7 +49,7 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     M = precond if precond is not None else (lambda v: v)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - apply_A(x)
-    res0 = float(torch.linalg.vector_norm(r))
+    res0 = to_host(torch.linalg.vector_norm(r))
     res = res0
     k = 0
     if res >= tol:
@@ -49,7 +61,7 @@ def cg(apply_A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             alpha = rho / torch.dot(p, q)
             x = x + alpha * p
             r = r - alpha * q
-            res = float(torch.linalg.vector_norm(r))
+            res = to_host(torch.linalg.vector_norm(r))
             k += 1
             if res < tol or k >= maxiter:
                 break

@@ -32,6 +32,7 @@ from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 from coulomb_gmg_tpu_torch.ops.stencil import (
     stencil_table, level_topology, topology_signature, build_level_ops,
     build_prolongation_ops, power_lmax_device)
+from coulomb_gmg_tpu_torch.solver.fused import SteppedGMG
 from coulomb_gmg_tpu_torch.solver.gmg import (
     pad_n, round_up, copy_map_tables, dst_tables, cellwise_mv, gmg_cg)
 
@@ -136,16 +137,22 @@ class StencilGMG:
 
     ``ops`` is the working-precision operator set consumed by
     solver/gmg.py; ``sys64`` holds the float64 system operands of the RHS
-    assembly and the refinement defect."""
+    assembly and the refinement defect.  ``fused`` (the driver's
+    ``solve_fused``) runs every solve as the stepped solve of
+    solver/fused.py, on the card CUDA graphs captured at the first solve
+    and kept until :meth:`release`; ``fused=False`` runs the eager loop
+    ``gmg_cg``, a measurement aid."""
 
     def __init__(self, forest: Forest, dofs: DofInfo,
                  constraints: Constraints, device, dtype=torch.float32,
                  cache: Optional[dict] = None, coarse_maxiter: int = 500,
-                 coarse_rtol: float = 1e-6):
+                 coarse_rtol: float = 1e-6, fused: bool = True):
         if dofs.degree != 1:
             raise NotImplementedError("StencilGMG is Q1-only")
         self.device = torch.device(device)
         self.dtype = dtype
+        self.fused = fused
+        self.stepped = None
         dim = forest.dim
         n = dofs.n_dofs
         self.n = n
@@ -305,7 +312,18 @@ class StencilGMG:
             x0 = torch.zeros_like(rhs)
         nb = (float(torch.linalg.vector_norm(rhs)) if rhs_norm is None
               else float(rhs_norm))
-        return gmg_cg(self.ops, rhs, x0, rtol * nb, maxiter)
+        if not self.fused:
+            return gmg_cg(self.ops, rhs, x0, rtol * nb, maxiter)
+        if self.stepped is None:
+            self.stepped = SteppedGMG(self.ops, self.n_pad, self.dtype,
+                                      self.device)
+        return self.stepped.solve(rhs, x0, rtol * nb, maxiter)
+
+    def release(self) -> None:
+        """Drop the stepped solve's graphs and state (operators replaced)."""
+        if self.stepped is not None:
+            self.stepped.release()
+            self.stepped = None
 
     # -------------------------------------------------------- float64 RHS
 

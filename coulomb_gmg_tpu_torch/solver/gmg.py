@@ -26,10 +26,14 @@ the same thing:
   level 0's ``A``.
 
 Every accumulation is a gather over precomputed tables, never an atomic
-scatter, so the solve is deterministic from run to run.  The outer CG is a
-host loop that reads one scalar (the residual norm) per iteration.  The TPU
-module's bucket padding and blob packing have no counterpart: PyTorch runs
-eagerly, there are no recompiles to dodge.
+scatter, so the solve is deterministic from run to run.  :func:`gmg_cg` and
+:func:`coarse_cg` are the eager loops (``solve_fused=False``): host loops
+that read one scalar (the residual norm) per iteration, through
+:func:`~coulomb_gmg_tpu_torch.solver.cg.to_host`.  The default route,
+solver/fused.py (the counterpart of the one-executable ``_fused_gmg_cg``),
+runs the same arithmetic as a stepped solve on the device.  The TPU module's
+bucket padding and blob packing have no counterpart: PyTorch runs eagerly,
+there are no recompiles to dodge.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 
 from coulomb_gmg_tpu_torch.ops.dst import dst_solve
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
+from coulomb_gmg_tpu_torch.solver.cg import to_host
 
 CHEB_DEGREE = 4           # Chebyshev smoothing steps per V-cycle visit
 
@@ -151,11 +156,11 @@ def coarse_cg(ops: dict, d0: torch.Tensor) -> torch.Tensor:
     lv = ops["levels"][0]
     x = torch.zeros_like(d0)
     r = d0
-    tol2 = ops["coarse_rtol"] ** 2 * float(torch.dot(r, r))
+    tol2 = ops["coarse_rtol"] ** 2 * to_host(torch.dot(r, r))
     z = _smooth(lv, r, None, True)
     p = z
     rho = torch.dot(r, z)
-    r2 = float(torch.dot(r, r))
+    r2 = to_host(torch.dot(r, r))
     k = 0
     while r2 > tol2 and k < ops["coarse_maxiter"]:
         q = ell_mv(*lv["A"], p)
@@ -166,15 +171,15 @@ def coarse_cg(ops: dict, d0: torch.Tensor) -> torch.Tensor:
         rho_new = torch.dot(r, z)
         p = z + _safe_div(rho_new, rho) * p
         rho = rho_new
-        r2 = float(torch.dot(r, r))
+        r2 = to_host(torch.dot(r, r))
         k += 1
     return x
 
 
-def vcycle(ops: dict, g: torch.Tensor) -> torch.Tensor:
-    """One V-cycle (pre-smooth, restrict, exact coarse solve, prolongate,
-    post-smooth) on the residual ``g``; copy to and from the levels are
-    pure gathers."""
+def vcycle_down(ops: dict, g: torch.Tensor):
+    """The first half of a V-cycle on the residual ``g``: copy to the
+    levels (pure gathers), pre-smooth and restrict down to level 0.
+    Returns (defect per level, smoothed solution per level, None at 0)."""
     levels = ops["levels"]
     L = len(levels) - 1
     defect = [torch.where(lv["cmask"], g[lv["l2g"]], 0.0) for lv in levels]
@@ -187,11 +192,27 @@ def vcycle(ops: dict, g: torch.Tensor) -> torch.Tensor:
             r = r - ell_mv(*lv["if"], u)
         defect[l - 1] = defect[l - 1] + ell_mv(*lv["R"], r)
         sol[l] = u
+    return defect, sol
+
+
+def vcycle(ops: dict, g: torch.Tensor) -> torch.Tensor:
+    """One V-cycle (pre-smooth, restrict, exact coarse solve, prolongate,
+    post-smooth) on the residual ``g``; copy to and from the levels are
+    pure gathers."""
+    defect, sol = vcycle_down(ops, g)
     if ops["dst"] is not None:
-        sol[0] = coarse_apply(ops["dst"], defect[0], levels[0]["inv_diag"],
-                              ops["dim"])
+        sol[0] = coarse_apply(ops["dst"], defect[0],
+                              ops["levels"][0]["inv_diag"], ops["dim"])
     else:
         sol[0] = coarse_cg(ops, defect[0])
+    return vcycle_up(ops, defect, sol, g)
+
+
+def vcycle_up(ops: dict, defect, sol, g: torch.Tensor) -> torch.Tensor:
+    """The second half of a V-cycle: prolongate from the coarse solution
+    ``sol[0]``, post-smooth, and copy back to the layout of ``g``."""
+    levels = ops["levels"]
+    L = len(levels) - 1
     for l in range(1, L + 1):
         lv = levels[l]
         u = sol[l] + ell_mv(*lv["P"], sol[l - 1])
@@ -210,22 +231,27 @@ def _safe_div(a, b):
     return torch.where(b != 0, a / torch.where(b != 0, b, 1.0), 0.0)
 
 
+def tol_squared(tol: float, dtype: torch.dtype) -> torch.Tensor:
+    """``tol**2`` as the stopping test compares it: ``tol`` rounded to the
+    working type and squared there (a CPU scalar)."""
+    t = torch.tensor(tol, dtype=dtype)
+    return t * t
+
+
 def gmg_cg(ops: dict, rhs: torch.Tensor, x0: torch.Tensor, tol: float,
            maxiter: int):
     """GMG-preconditioned CG until ``|r| <= tol`` or ``maxiter``
     iterations.  Returns (x, iterations, |r0|, |r|); the two norms are
     floats.  The stopping test compares float32-rounded quantities when the
     working type is float32, as the fused TPU executable does."""
-    dt = rhs.dtype
     r = rhs - sys_mv(ops["sys"], x0)
     res2 = torch.dot(r, r)
-    tol_t = torch.tensor(tol, dtype=dt)
-    tol2 = float(tol_t * tol_t)
+    tol2 = float(tol_squared(tol, rhs.dtype))
     z = vcycle(ops, r)
     p = z
     rho = torch.dot(r, z)
     x = x0
-    res2_h = float(res2)
+    res2_h = to_host(res2)
     res0 = res2_h ** 0.5
     k = 0
     while k < maxiter and res2_h > tol2:
@@ -237,6 +263,6 @@ def gmg_cg(ops: dict, rhs: torch.Tensor, x0: torch.Tensor, tol: float,
         rho_new = torch.dot(r, z)
         p = z + _safe_div(rho_new, rho) * p
         rho = rho_new
-        res2_h = float(torch.dot(r, r))       # the one sync per iteration
+        res2_h = to_host(torch.dot(r, r))     # the one read per iteration
         k += 1
     return x, k, res0, res2_h ** 0.5

@@ -30,6 +30,7 @@ import torch
 
 from coulomb_gmg_tpu_torch.ops.dst import DSTPoisson
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
+from coulomb_gmg_tpu_torch.solver.fused import SteppedGMG
 from coulomb_gmg_tpu_torch.solver.gmg import (pad_n, copy_map_tables,
                                               dst_tables, gmg_cg, vcycle)
 
@@ -69,15 +70,21 @@ def _hc_get(hc: Optional[dict], key_obj, tag, build, touched: set):
 
 class TpuGMG:
     """Device V-cycle + preconditioned CG built from a host
-    ``GMGPreconditioner`` and the system matrix."""
+    ``GMGPreconditioner`` and the system matrix.  ``fused`` (the driver's
+    ``solve_fused``, JAX's ``solve_fused``) runs every solve as the stepped
+    solve of solver/fused.py, on the card CUDA graphs captured at the first
+    solve and kept until :meth:`release`; ``fused=False`` runs the eager
+    loop ``gmg_cg``."""
 
     def __init__(self, gmg, sys_csr, forest, device,
                  dtype: torch.dtype = torch.float32,
                  smoothing_range: float = 8.0, use_dst: bool = True,
                  coarse_maxiter: int = 500, coarse_rtol: float = 1e-6,
-                 host_cache: Optional[dict] = None):
+                 host_cache: Optional[dict] = None, fused: bool = True):
         self.device = torch.device(device)
         self.dtype = dtype
+        self.fused = fused
+        self.stepped = None
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         touched = set()
         have_dst = use_dst and forest is not None and forest.base_reps >= 3
@@ -163,8 +170,22 @@ class TpuGMG:
         type, iterations, |r0|, |r|)."""
         b = self._padded(rhs)
         tol = max(rtol * float(torch.linalg.vector_norm(b)), abstol)
-        x, k, res0, res = gmg_cg(self.ops, b, self._padded(x0), tol, maxiter)
+        if not self.fused:
+            x, k, res0, res = gmg_cg(self.ops, b, self._padded(x0), tol,
+                                     maxiter)
+            return x[: self.n], k, res0, res
+        if self.stepped is None:
+            self.stepped = SteppedGMG(self.ops, self.n_pad, self.dtype,
+                                      self.device)
+        x, k, res0, res = self.stepped.solve(b, self._padded(x0), tol,
+                                             maxiter)
         return x[: self.n], k, res0, res
+
+    def release(self) -> None:
+        """Drop the stepped solve's graphs and state."""
+        if self.stepped is not None:
+            self.stepped.release()
+            self.stepped = None
 
 
 def solve_refined(gmg: TpuGMG, sys_csr, rhs, x0=None, rtol: float = 1e-8,

@@ -354,3 +354,44 @@ def test_sharded_ell_apply_on_card(card, dtype):
                                                  dtype), hp, ctx))
     assert ell.ell_mv.launches == before + 3
     assert torch.equal(torch.cat(ys)[: A.n_rows], y1)
+
+
+FUSED_ROUTES = {"device_ops": dict(device_operators="on"),
+                "tpu_gmg": dict(device_operators="off",
+                                solver_backend="tpu_cg"),
+                "tpu_cg": dict(device_operators="off",
+                               solver_backend="tpu_cg",
+                               preconditioner="Jacobi")}
+
+
+@pytest.mark.parametrize("route", sorted(FUSED_ROUTES))
+def test_graph_solve_is_the_eager_solve(card, route, monkeypatch):
+    """solve_fused=True (CUDA graphs, solver/fused.py) against the eager
+    loops on 8 atoms, 2 cycles: the same bits and CG counts, and the ELL
+    launches of the eager loop plus those of each cycle's warm-up; one
+    capture per cycle, reused by every refinement pass."""
+    from coulomb_gmg_tpu_torch.solver.fused import Segments
+    captures = []
+    plain = Segments._capture
+    monkeypatch.setattr(Segments, "_capture",
+                        lambda self: captures.append(self) or plain(self))
+    out = {}
+    for fused in (False, True):
+        cfg = production_scaling_config(1, dtype="float32",
+                                        n_adaptive_cycles=2,
+                                        solve_fused=fused,
+                                        **FUSED_ROUTES[route])
+        sim = Simulation(cfg, atoms=nacl_lattice(1), device=card,
+                         pcout=Pcout(enabled=False))
+        before = ell.ell_mv.launches
+        res = sim.run()
+        out[fused] = (sim.solution, [r["cg_iterations"] for r in res],
+                      [r["cg_passes"] for r in res],
+                      ell.ell_mv.launches - before)
+        assert len(captures) == (2 if fused else 0)
+    warmup = sum(s.warmup["launches"] for s in captures)
+    assert np.array_equal(out[True][0], out[False][0])
+    assert out[True][1:3] == out[False][1:3]
+    assert warmup > 0 and out[True][3] == out[False][3] + warmup > warmup
+    if route == "device_ops":
+        assert max(len(p) for p in out[True][2]) >= 2
