@@ -40,7 +40,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite, the earlier runs' CG counts, the ELL kernel launched (float64
    launches among them) and the tile kernel not; it prints the stage
    seconds, the SSOR host seconds, the coarse CG iterations per V-cycle,
-   the system ELL's K and padding share and the peak device memory;
+   the system ELL's K and padding share and the peak device memory, and
+   times the ELL kernel on the last cycle's float64 system (K = 51)
+   beside ``torch.mv`` on a float64 CSR copy of it (cuSPARSE);
 7. the other two host-assembled routes at a smaller size:
    ``examples/step-16.prm`` in float32 (tile density, ``TpuGMG`` with
    ``solve_refined``) and the same file with the Jacobi preconditioner
@@ -58,7 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. several devices on the one card: 4 shards on ``cuda:0``.  First the
    8,000-atom study in float64 through the SPMD path (sharded list density
    and assembly, ``ShardedGMG``, sharded Kelly estimate): the published
-   cells, the true residual of phase 8, ELL launches; it prints the CG
+   cells, the true residual of phase 8, ELL launches, and ``ShardedGMG``
+   stepped as CUDA graphs (the default ``solve_fused``); it prints the CG
    counts, stages and peak memory.  Then cycle 0 of the same study in
    float32 (the tile kernel once per shard, ``ShardedGMG`` without
    iterative refinement, as in JAX): the published cells, a finite
@@ -81,8 +84,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    n_adaptive_cycles=3)``, 523,592 cells), whose system both then solve by
    ``ShardedGMG`` across the two processes.  Both ranks must exit 0 and
    agree on every iteration count and bitwise on the checksums, rank 0's
-   one-process 4-shard solves must be ``torch.equal`` to the two-process
-   ones (so must the all-gather imports), the GMG true residual must be
+   one-process 4-shard solves, stepped and eager, must be ``torch.equal``
+   to the two-process ones (so must the all-gather imports), which run
+   the stepped solves uncaptured (each rank prints the mode and the GMG
+   solve's host reads), the GMG true residual must be
    <= 1.01e-8 ||b|| and each rank must have launched the ELL kernel.  It
    prints each rank's wall, solve seconds, CG count, halo and coarse-gather
    bytes per V-cycle, seconds in collectives and peak memory.  With two or
@@ -100,10 +105,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    solve must make at most ``k + 2`` host reads.  It prints the counts,
    warm-up launches, reads per solve, capture and instantiate seconds per
    cycle, "Solve" seconds and peak device memory of both, the size of the
-   last cycle's graph memory pool, and its step's replay and read times.
+   last cycle's graph memory pool, and its step's replay and read times;
+13. sharded fused, run right after phase 9 on that run's last system
+   (its ``ShardedGMG``, 4 shards of ``cuda:0``, float64): one solve from
+   zero as the eager loops, one stepped as CUDA graphs.  They must give
+   the same bits, CG count, norms and coarse iterations per V-cycle, the
+   graph solve the eager ELL launches plus its warm-up's, both ``k + 1 +
+   sum(kc + 1)`` host reads (k CG steps, k + 1 V-cycles of kc coarse
+   iterations), a true residual <= 1.01e-8 ||b||, and the mode "stepped,
+   CUDA graphs"; it prints both solves' seconds, the step-head, coarse and
+   step-tail replay and read times, capture and instantiate seconds, the
+   graph pool and peak memory.  Then the sharded Jacobi-CG on a 64^3
+   7-point Poisson matrix at 4 shards, eager and stepped: the same bits
+   and count, ``k + 2`` reads each, ELL launches eager plus warm-ups.
 
 Each phase prints its seconds.  The line before the last is the kernels'
-JSON record (launches summed over phases 4 to 12, phase 11's from both
+JSON record (launches summed over phases 4 to 13, phase 11's from both
 workers, the graph solves' warm-ups included); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -593,9 +610,19 @@ def phase_host_f64():
                  - ell.ell_mv_plain(cols, vals, x)).abs().max())
     if not err <= 1e-12 * float(ell.ell_mv_plain(cols, vals, x).abs().max()):
         raise AssertionError(f"host f64: system ELL kernel max err {err:.3e}")
+    csr = ell_as_csr(cols, vals)
+    err_lib = float((torch.mv(csr, x) - ell.ell_mv_plain(cols, vals, x)
+                     ).abs().max())
+    if not err_lib <= 1e-12 * float(ell.ell_mv_plain(cols, vals,
+                                                     x).abs().max()):
+        raise AssertionError(f"host f64: torch.mv on the CSR copy: max err "
+                             f"{err_lib:.3e}")
     ms = median_ms(lambda: ell.ell_mv_cuda(cols, vals, x))
+    ms_lib = median_ms(lambda: torch.mv(csr, x))
     b = roofline.ell_spmv(cols, vals, x)
     print(f"[host f64] system ELL float64 (last cycle): kernel {ms:.4f} ms, "
+          f"torch.mv CSR float64 ({csr.values().numel()} nonzeros, "
+          f"cuSPARSE) {ms_lib:.4f} ms, kernel / library {ms / ms_lib:.3f}; "
           f"max|err| {err:.3e}; {bound_text(b, ms)}", flush=True)
     cg = [r["cg_iterations"] for r in res]
     print(f"[host f64] wall {wall:.2f} s; CG {cg} (earlier "
@@ -772,10 +799,14 @@ def phase_multi_device():
     cfg = production_scaling_config(ATOMS_N, dtype="float64", n_devices=D)
     sim, res, launches, _ = run_study(f"spmd x{D}", cfg,
                                       spmd_devices=["cuda:0"] * D)
+    mode = sim.gmg.solve_info()["mode"]
+    print(f"[spmd x{D}] ShardedGMG: {mode}", flush=True)
     if sim.spmd is None or sim.spmd.D != D or sim.device_ops:
         raise AssertionError("spmd: not the SPMD path")
     if launches["ell_spmv"] <= 0:
         raise AssertionError(f"spmd: launch counts {launches}")
+    if mode != f"stepped, CUDA graphs: {D} shards on cuda:0":
+        raise AssertionError(f"spmd: ShardedGMG ran {mode!r}")
 
     # float32, cycle 0: ShardedGMG without iterative refinement, as in JAX,
     # so CG stops on its recursive residual; the true one is printed, not
@@ -835,7 +866,7 @@ def phase_multi_device():
     if not (rel <= 1e-6 and n_gr >= D):
         raise AssertionError(f"spmd energy_norm_error: rel {rel:.2e}, "
                              f"{n_gr} launches")
-    return launches
+    return launches, sim
 
 
 def print_residuals(tag, res):
@@ -948,6 +979,9 @@ def check_multihost(tag, lines):
                         for k in sorted(r["comm_s"]))
         peak = ("not measured" if r["peak_gib"] is None
                 else f"{r['peak_gib']:.2f} GiB")
+        print(f"[{tag} rank {r['rank']}] solves: Jacobi {r['jacobi_mode']}"
+              f"; ShardedGMG {r['gmg_mode']}, {r['gmg_reads']} reads",
+              flush=True)
         print(f"[{tag} rank {r['rank']}] {r['device']} shards {r['shards']}; "
               f"wall {r['wall_s']:.2f} s (problem {r['problem_s']:.2f} s, "
               f"ShardedGMG build {r['gmg_build_s']:.2f} s, solve "
@@ -959,9 +993,11 @@ def check_multihost(tag, lines):
               f"collectives (GMG solve) {comm}; ELL launches "
               f"{r['ell_launches']}; peak {peak}", flush=True)
     one = a.get("one_process_equal", {})
+    other = a.get("other_form_equal", {})
     print(f"[{tag}] {a['n_cells']} cells, {a['n_dofs']} dofs; checksums "
           f"{a['checksum']!r} / {b['checksum']!r}, GMG {a['gmg_checksum']!r}"
-          f" / {b['gmg_checksum']!r}; one process == two: {one}; all-gather"
+          f" / {b['gmg_checksum']!r}; one process == two: {one}, eager one "
+          f"process == two: {other}; all-gather"
           f" == halo: {[r['gather_equal'] for r in lines]}; one-process GMG "
           f"solve {a.get('one_process_gmg_solve_s', float('nan')):.3f} s",
           flush=True)
@@ -975,8 +1011,11 @@ def check_multihost(tag, lines):
     if not (a["local_norm"] != b["local_norm"]
             and a["gmg_local_norm"] != b["gmg_local_norm"]):
         bad.append("the ranks hold the same half")
-    if one != {"jacobi": True, "gmg": True}:
-        bad.append("not equal to the one-process solve")
+    if one != {"jacobi": True, "gmg": True} or other != one:
+        bad.append("not equal to the one-process solves")
+    if not all(r["fused"] and r["gmg_mode"].startswith("stepped, uncaptured")
+               for r in lines):
+        bad.append("not the uncaptured stepped solves")
     if not all(all(r["gather_equal"].values()) for r in lines):
         bad.append("the all-gather import differs from the halo plan")
     if not all(r["gmg_true_rel_res"] <= 1.01e-8 for r in lines):
@@ -1032,6 +1071,18 @@ def replay_ms(stepped, names, flag):
     out = {name: per_call(seg.graphs[name].replay, 50) for name in names}
     out["read"] = per_call(flag.tolist, 200)
     return out
+
+
+def pool_text(segments):
+    """Reserved and allocated MiB of the memory pool that a stepped
+    solve's graphs share."""
+    import torch
+    pool = tuple(next(iter(segments.graphs.values())).pool())
+    segs = [sg for sg in torch.cuda.memory_snapshot()
+            if tuple(sg.get("segment_pool_id", ())) == pool]
+    return (f"{sum(sg['total_size'] for sg in segs) / 2**20:.1f} MiB "
+            f"reserved, {sum(sg['allocated_size'] for sg in segs) / 2**20:.1f}"
+            f" MiB allocated")
 
 
 def fused_run(fused, n, cells):
@@ -1117,13 +1168,8 @@ def phase_fused(n=ATOMS_N):
     same = [bool(np.array_equal(a, b)) for a, b in zip(e["sols"], g["sols"])]
     costs = replay_ms(g["sim"].gmg.stepped, ("step",),
                       g["sim"].gmg.stepped.active)
-    pool = tuple(g["sim"].gmg.stepped.segments.graphs["step"].pool())
-    segs = [sg for sg in torch.cuda.memory_snapshot()
-            if tuple(sg.get("segment_pool_id", ())) == pool]
     print(f"[fused] the last cycle's graph pool: "
-          f"{sum(sg['total_size'] for sg in segs) / 2**20:.1f} MiB reserved,"
-          f" {sum(sg['allocated_size'] for sg in segs) / 2**20:.1f} MiB "
-          f"allocated", flush=True)
+          f"{pool_text(g['sim'].gmg.stepped.segments)}", flush=True)
     g["sim"].gmg.release()
     print(f"[fused] solutions equal per cycle {same}; Solve eager "
           f"{e['solve_s']:.4f} s, graph {g['solve_s']:.4f} s; last cycle: "
@@ -1154,6 +1200,230 @@ def phase_fused(n=ATOMS_N):
     return {k: e["launches"][k] + g["launches"][k] for k in KERNELS}
 
 
+def sharded_gmg_both(sg, rhs, rtol):
+    """The eager, then the stepped solve of one ShardedGMG from zero;
+    per form the solution, counts, norms, coarse iterations per V-cycle,
+    launches, solve_info, seconds and peak memory."""
+    import torch
+    out = {}
+    for fused in (False, True):
+        sg.fused = fused
+        n0 = len(sg.coarse_iterations)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        x, k, res0, res = sg.solve(rhs, None, rtol=rtol)
+        secs = time.perf_counter() - t0
+        out[fused] = dict(x=x, k=k, res0=res0, res=res, s=secs,
+                          coarse=sg.coarse_iterations[n0:],
+                          launches=read_counts(), info=sg.solve_info(),
+                          peak=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def phase_sharded_fused(sim):
+    """Phase 13 on the final system of phase 9's float64 SPMD run (its
+    ShardedGMG, 4 shards on cuda:0), then the sharded Jacobi-CG on a 64^3
+    Poisson matrix at 4 shards: each eager, then stepped."""
+    import torch
+    from coulomb_gmg_tpu_torch.ops.ell import ell_mv
+    from coulomb_gmg_tpu_torch.parallel.multihost import poisson_7pt
+    from coulomb_gmg_tpu_torch.parallel.sharded import (
+        ShardedCSR, make_sharded_solver, put_blocks, shard_vector,
+        sharded_diag)
+    from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
+    sg, rhs, bad = sim.gmg, np.asarray(sim.rhs), []
+    out = sharded_gmg_both(sg, rhs, sim.cfg.cg_rtol)
+    e, g = out[False], out[True]
+    st = sg.stepped
+    costs = replay_ms(st, ("step_head", "coarse", "step_tail"),
+                      st.coarse0.info)
+    pool = pool_text(st.segments)
+    sg.release()
+    A64 = sim.A.ell(dtype=torch.float64)
+    xd = torch.from_numpy(g["x"]).cuda()
+    true = float(torch.linalg.vector_norm(torch.from_numpy(rhs).cuda()
+                                          - ell_mv(*A64, xd)))
+    bnorm = float(np.linalg.norm(rhs))
+    for tag, r in (("eager", e), ("graph", g)):
+        print(f"[sharded fused {tag}] {r['info']['mode']}: CG {r['k']}, "
+              f"|r0| {r['res0']:.6e} |r| {r['res']:.6e}, coarse CG per "
+              f"V-cycle {r['coarse']}; reads {r['info']['reads']}; solve "
+              f"{r['s']:.4f} s; ELL launches {r['launches']['ell_spmv']}; "
+              f"capture {r['info'].get('capture_s', 0.0):.4f} s, instantiate "
+              f"{r['info'].get('instantiate_s', 0.0):.4f} s, warm-up "
+              f"{r['info'].get('warmup', {})}; peak {r['peak']:.3f} GiB",
+              flush=True)
+    print(f"[sharded fused] {sim.forest.n_cells} cells, {sg.n} dofs, "
+          f"{len(sg.levels)} levels; solve eager {e['s']:.4f} s, graph "
+          f"{g['s']:.4f} s; replay ms: " + ", ".join(
+              f"{n} {v:.4f}" for n, v in costs.items())
+          + f"; graph pool {pool}; true residual {true / bnorm:.3e} |b|",
+          flush=True)
+    warm = g["info"]["warmup"].get("launches", 0)
+    if not (np.array_equal(e["x"], g["x"]) and e["k"] == g["k"]
+            and e["res0"] == g["res0"] and e["res"] == g["res"]):
+        bad.append("GMG: solutions or norms differ")
+    if e["coarse"] != g["coarse"] or len(g["coarse"]) != g["k"] + 1:
+        bad.append("GMG: coarse iterations differ")
+    if not (warm > 0 and g["launches"] == e["launches"] | {
+            "ell_spmv": e["launches"]["ell_spmv"] + warm}):
+        bad.append(f"GMG: launches {g['launches']} != {e['launches']} + "
+                   f"{warm} ELL warm-ups")
+    for r in (e, g):
+        if r["info"]["reads"] != r["k"] + 1 + sum(kc + 1
+                                                  for kc in r["coarse"]):
+            bad.append(f"GMG: {r['info']['reads']} reads")
+    if g["info"]["mode"] != "stepped, CUDA graphs: 4 shards on cuda:0":
+        bad.append(f"GMG mode {g['info']['mode']!r}")
+    if not (1 <= g["k"] <= 20 and true <= 1.01e-8 * bnorm):
+        bad.append(f"GMG: CG {g['k']}, true residual {true / bnorm:.3e}")
+    launches = {k: e["launches"][k] + g["launches"][k] for k in KERNELS}
+
+    D, m = 4, 64
+    rows, cols, vals, n = poisson_7pt(m)
+    ctx = SpmdContext(D, ["cuda:0"] * D)
+    A = ShardedCSR.from_coo(rows, cols, vals, n, D)
+    b = put_blocks(shard_vector(np.random.default_rng(7).standard_normal(n),
+                                D), ctx)
+    jac = {}
+    for fused in (False, True):
+        solver = make_sharded_solver(ctx, A, sharded_diag(A, D),
+                                     tol_rtol=1e-10, maxiter=4000,
+                                     fused=fused)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        xb, k, res0, res = solver(b, [torch.zeros_like(v) for v in b])
+        torch.cuda.synchronize()
+        jac[fused] = dict(x=torch.cat(xb), k=k, res0=res0, res=res,
+                          s=time.perf_counter() - t0, info=solver.info,
+                          launches=read_counts())
+        r = jac[fused]
+        print(f"[sharded jacobi {m}^3 x{D} fused={fused}] "
+              f"{r['info']['mode']}: CG {k}, |r|/|r0| {res / res0:.3e}; "
+              f"reads {r['info']['reads']}; solve {r['s']:.4f} s; ELL "
+              f"launches {r['launches']['ell_spmv']}; capture "
+              f"{r['info'].get('capture_s', 0.0):.4f} s", flush=True)
+    je, jg = jac[False], jac[True]
+    warm = jg["info"]["warmup"].get("launches", 0)
+    if not (torch.equal(je["x"], jg["x"]) and je["k"] == jg["k"]
+            and je["res"] == jg["res"] and 10 <= jg["k"] < 4000):
+        bad.append("Jacobi: solutions or counts differ")
+    if not jg["info"]["reads"] == je["info"]["reads"] == jg["k"] + 2:
+        bad.append("Jacobi: reads")
+    if not (warm > 0 and jg["launches"]["ell_spmv"]
+            == je["launches"]["ell_spmv"] + warm):
+        bad.append("Jacobi: launches")
+    if bad:
+        raise AssertionError("sharded fused: " + "; ".join(bad))
+    for k in KERNELS:
+        launches[k] += je["launches"][k] + jg["launches"][k]
+    return launches
+
+
+def spmd_solve_pair(D=4):
+    """Phase 9's float64 study on D shards of cuda:0 with ``solve_fused``
+    off, then on, in one process (not a phase of the smoke run:
+    ``python3 -c "import chip_smoke as c; c.phase_build();
+    c.spmd_solve_pair()"``).  Per cycle it prints the "Solve" stage and
+    the ``ShardedGMG.solve`` seconds inside it, CG, host reads and capture
+    seconds; the two runs must give the same cells, CG and solutions."""
+    from coulomb_gmg_tpu_torch.config import production_scaling_config
+    from coulomb_gmg_tpu_torch.driver import Simulation
+    from coulomb_gmg_tpu_torch.parallel.sharded_gmg import ShardedGMG
+    plain = ShardedGMG.solve
+    runs = {}
+    for fused in (False, True):
+        solves = []
+
+        def solve(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = plain(self, *a, **kw)
+            solves.append((time.perf_counter() - t0, out[1],
+                           self.solve_info()))
+            return out
+        sols, restore = record_solutions(Simulation)
+        ShardedGMG.solve = solve
+        try:
+            cfg = production_scaling_config(ATOMS_N, dtype="float64",
+                                            n_devices=D,
+                                            solve_fused=fused)
+            sim, res, _, _ = run_study(f"spmd x{D} fused={fused}", cfg,
+                                       spmd_devices=["cuda:0"] * D)
+        finally:
+            ShardedGMG.solve = plain
+            restore()
+        del sim
+        gc.collect()
+        stage = [r["stages"]["Solve"] for r in res]
+        runs[fused] = dict(sols=sols, cg=[r["cg_iterations"] for r in res],
+                           cells=[r["n_cells"] for r in res])
+        cap = [round(i.get("capture_s", 0.0) + i.get("instantiate_s", 0.0),
+                     4) for _, _, i in solves]
+        print(f"[spmd pair fused={fused}] Solve stage "
+              f"{sum(stage):.4f} s = {[round(x, 4) for x in stage]}; "
+              f"ShardedGMG.solve {sum(x[0] for x in solves):.4f} s = "
+              f"{[round(x[0], 4) for x in solves]}; reads "
+              f"{[i['reads'] for _, _, i in solves]}; capture+instantiate "
+              f"{cap}; mode {solves[-1][2]['mode']}", flush=True)
+    e, g = runs[False], runs[True]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(e["sols"],
+                                                     g["sols"])]
+    print(f"[spmd pair] CG {e['cg']} / {g['cg']}; solutions equal {same}",
+          flush=True)
+    if e["cg"] != g["cg"] or e["cells"] != g["cells"] or not all(same):
+        raise AssertionError("spmd pair: the two runs differ")
+
+
+def sharded_solve_pairs(n=10, D=4):
+    """Phase 9's float64 study on D shards of cuda:0, then ``n`` pairs of
+    solves of its last system from zero, eager and stepped, the order
+    alternating from pair to pair; each stepped solve captures its graphs
+    anew, as the driver's once-a-cycle ``ShardedGMG`` does.  Then ``n``
+    stepped solves on kept graphs.  Every solve must give the first one's
+    bits.  Not a phase of the smoke run: ``python3 -c "import chip_smoke
+    as c; c.phase_build(); c.sharded_solve_pairs()"``."""
+    import torch
+    from coulomb_gmg_tpu_torch.config import production_scaling_config
+    cfg = production_scaling_config(ATOMS_N, dtype="float64", n_devices=D)
+    sim, _, _, _ = run_study(f"spmd x{D}", cfg,
+                             spmd_devices=["cuda:0"] * D)
+    sg, rhs = sim.gmg, np.asarray(sim.rhs)
+
+    def solve(fused, keep=False):
+        if not keep:
+            sg.release()
+        sg.fused = fused
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, k = sg.solve(rhs, None, rtol=cfg.cg_rtol)[:2]
+        return time.perf_counter() - t0, x, k
+
+    times = {False: [], True: []}
+    ref = None
+    for i in range(n):
+        for fused in ((False, True) if i % 2 == 0 else (True, False)):
+            s, x, k = solve(fused)
+            times[fused].append(s)
+            ref = ref or (x, k)
+            if not (np.array_equal(x, ref[0]) and k == ref[1]):
+                raise AssertionError("sharded pairs: a solve differs")
+    solve(True)
+    kept = [solve(True, keep=True)[0] for _ in range(n)]
+    sg.release()
+    q = lambda v: np.percentile(v, [25, 50, 75])
+    wins = sum(g < e for e, g in zip(times[False], times[True]))
+    for tag, v in (("eager", times[False]), ("graph", times[True]),
+                   ("graph, kept graphs", kept)):
+        print(f"[sharded pairs] {tag}: quartiles "
+              f"{' / '.join(f'{x:.4f}' for x in q(v))} s; runs "
+              f"{[round(x, 4) for x in v]}", flush=True)
+    print(f"[sharded pairs] CG {ref[1]}; the graph solve faster in {wins} "
+          f"of {n} pairs", flush=True)
+
+
 def main():
     t0 = time.time()
     smi = phase_device()
@@ -1174,7 +1444,11 @@ def main():
     main6 = timed("host f64", phase_host_f64)
     main7 = timed("routes", phase_routes)
     main8 = timed("device f64", phase_device_f64)
-    main9 = timed("multi device", phase_multi_device)
+    main9, spmd_sim = timed("multi device", phase_multi_device)
+    # phase 13 takes phase 9's final system, so it runs right after it
+    main13 = timed("sharded fused", lambda: phase_sharded_fused(spmd_sim))
+    del spmd_sim
+    gc.collect()
     main10 = timed("output", phase_output)
     main11 = timed("multihost", phase_multihost)
     main12 = timed("fused", phase_fused)
@@ -1182,14 +1456,14 @@ def main():
                 "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
                 "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45"}
-    # launches: the sum over the main-path runs (phases 4 to 12)
+    # launches: the sum over the main-path runs (phases 4 to 13)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"coulomb_gmg_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name],
          "launches": sum(m[name] for m in (main4, main5, main6, main7,
                                            main8, main9, main10, main11,
-                                           main12)),
+                                           main12, main13)),
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
                      "exact_gradient")]}

@@ -112,10 +112,12 @@ class Config:
     # admits the 64k-atom production solve (1.77M..1.93M DoF per cycle).
     solve_device_min_dofs: int = 1_500_000
     # the stepped solve of solver/fused.py (the counterpart of the fused
-    # whole-solve executable) for StencilGMG, TpuGMG and tpu_cg_solve: on
-    # the card CUDA graphs, a start and a step captured once per operator
-    # set, the state read once per step replay; False runs the eager
-    # loops, one read per CG iteration (a measurement aid)
+    # whole-solve executable) for StencilGMG, TpuGMG, tpu_cg_solve, the
+    # Jacobi CG, ShardedGMG and the sharded Jacobi-CG: on the card CUDA
+    # graphs, captured once per operator set, the state read once per
+    # step replay (sharded over several cards or processes: the same
+    # steps uncaptured); False runs the eager loops, one read per CG
+    # iteration (a measurement aid)
     solve_fused: bool = True
     # chip-resident operators (solver/device_gmg.py): level matrices built
     # ON DEVICE from compact topology (ops/stencil.py), matrix-free outer

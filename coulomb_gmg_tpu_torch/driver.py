@@ -23,12 +23,17 @@ the JAX driver chooses them (its ``device_ops_active``, ``use_tpu_cg`` and
   ``tpu_cg_solve`` (``use_tpu_cg``: ``solver_backend="tpu_cg"``, or
   ``"auto"`` in float32), else the host-loop ``cg`` with
   ``GMGPreconditioner`` (the reference's SSOR smoother by default) or
-  Jacobi;
+  the CG with Jacobi (solver/fused.py:stepped_cg under ``solve_fused``);
 * **SPMD** (``n_devices > 1``, parallel/): the host-assembled system with
   the density, assembly, Kelly estimate, FE error and energy sharded over
   contiguous SFC cell blocks (parallel/spmd.py), solved by ``ShardedGMG``
   or the sharded Jacobi-CG (parallel/sharded_gmg.py, parallel/sharded.py).
   ``Simulation(spmd_devices=...)`` names each shard's device.
+
+``solve_fused`` (the default) runs every solve but the host SSOR route's
+as a stepped solve (solver/fused.py): on the card CUDA graphs, the sharded
+ones across several cards or processes uncaptured.  ``False`` runs the
+eager loops.
 
 Float32 densities come from the tile kernel (``density_tiles``) or the
 dense kernel (no locality flag), float64 ones and ``density_tiles=False``
@@ -85,6 +90,7 @@ from coulomb_gmg_tpu_torch.parallel.spmd import (SpmdContext,
 from coulomb_gmg_tpu_torch.postprocess.energy import (electrostatic_energy,
                                                       energy_norm_error)
 from coulomb_gmg_tpu_torch.solver.cg import cg
+from coulomb_gmg_tpu_torch.solver.fused import stepped_cg
 from coulomb_gmg_tpu_torch.solver.device_gmg import (StencilGMG,
                                                      solve_refined_device)
 from coulomb_gmg_tpu_torch.solver.multigrid import build_gmg
@@ -386,7 +392,8 @@ class Simulation:
                 # ShardedGMG's own defaults for the coarse CG
                 self.gmg = ShardedGMG(self.gmg, self.A, self.spmd,
                                       dtype=self.dtype,
-                                      maxiter=cfg.cg_max_iters)
+                                      maxiter=cfg.cg_max_iters,
+                                      fused=cfg.solve_fused)
 
     # -------------------------------------------------------------- solve
 
@@ -508,12 +515,17 @@ class Simulation:
             return x.astype(np.float64), k, res0, resf
         put = lambda a: torch.from_numpy(np.asarray(a)).to(self.device,
                                                            self.dtype)
-        precond = (self.gmg if cfg.preconditioner == "GMG"
-                   else make_jacobi(self.A, cfg.jacobi_damping))
-        res = cg(self.A.matvec, put(rhs),
-                 x0=put(x0) if x0 is not None else None, precond=precond,
-                 tol=cfg.cg_rtol * float(np.linalg.norm(rhs)),
-                 maxiter=cfg.cg_max_iters)
+        # the host SSOR of the GMG route runs in the host loop, as JAX's
+        # cg(host=True); Jacobi in the stepped solve, as JAX's host=False
+        if cfg.preconditioner == "GMG":
+            solve, precond = cg, self.gmg
+        else:
+            solve = stepped_cg if cfg.solve_fused else cg
+            precond = make_jacobi(self.A, cfg.jacobi_damping)
+        res = solve(self.A.matvec, put(rhs),
+                    x0=put(x0) if x0 is not None else None, precond=precond,
+                    tol=cfg.cg_rtol * float(np.linalg.norm(rhs)),
+                    maxiter=cfg.cg_max_iters)
         return (res.x.cpu().numpy().astype(np.float64), res.iterations,
                 res.initial_residual, res.final_residual)
 
@@ -522,7 +534,10 @@ class Simulation:
         for GMG, the sharded Jacobi-CG otherwise (src/step-50.cc:996-1005)."""
         cfg, spmd = self.cfg, self.spmd
         if cfg.preconditioner == "GMG":
-            return self.gmg.solve(rhs, x0, rtol=cfg.cg_rtol)
+            try:
+                return self.gmg.solve(rhs, x0, rtol=cfg.cg_rtol)
+            finally:
+                self.gmg.release()
         np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
         As = ShardedCSR.from_coo(self.A.rowids, self.A.indices,
                                  self.A.data_np().astype(np_dtype),
@@ -530,7 +545,8 @@ class Simulation:
         solver = make_sharded_solver(spmd, As, sharded_diag(As, spmd.D),
                                      tol_rtol=cfg.cg_rtol,
                                      maxiter=cfg.cg_max_iters * 10,
-                                     damping=cfg.jacobi_damping)
+                                     damping=cfg.jacobi_damping,
+                                     fused=cfg.solve_fused)
         rhs_b = put_blocks(shard_vector(np.asarray(rhs, np_dtype), spmd.D),
                            spmd)
         x0_b = (put_blocks(shard_vector(np.asarray(x0, np_dtype), spmd.D),

@@ -18,6 +18,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cuda")
@@ -89,3 +91,13 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
                            f"{err}")
+
+
+def launch(fn, device: torch.device, what: str, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` with ``device`` current
+    and its current stream, and raise if it failed.  A kernel goes to the
+    current device: without the switch, operands on another card would
+    get this card's default stream (handle 0) and run here, unordered with
+    their own card's work."""
+    with torch.cuda.device(device):
+        check(fn(*args, torch.cuda.current_stream(device).cuda_stream), what)

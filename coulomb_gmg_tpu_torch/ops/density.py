@@ -128,12 +128,11 @@ def dense_density_cuda(lower: torch.Tensor, h: torch.Tensor,
     gbox = torch.empty((n_atoms + 31) // 32, 8, dtype=torch.float32,
                        device=lower.device)         # per 32-atom group box
     lib = kernels.library("dense_density", _FNS)
-    err = lib.dense_density_f32(
+    kernels.launch(
+        lib.dense_density_f32, lower.device, "dense_density",
         lower.data_ptr(), h.data_ptr(), pref.data_ptr(), atoms.data_ptr(),
         gbox.data_ptr(), out.data_ptr(), C, n_out, n_q, n_atoms, inv_rc2,
-        scale, skip_r2, None if pairs is None else pairs.data_ptr(),
-        torch.cuda.current_stream(lower.device).cuda_stream)
-    kernels.check(err, "dense_density")
+        scale, skip_r2, None if pairs is None else pairs.data_ptr())
     dense_density.launches += 1
     return out
 
@@ -157,9 +156,8 @@ def expf_neg_cuda(t: torch.Tensor) -> torch.Tensor:
                          "card")
     out = torch.empty_like(t)
     lib = kernels.library("dense_density", _FNS)
-    kernels.check(lib.expf_neg_f32(
-        t.data_ptr(), out.data_ptr(), t.numel(),
-        torch.cuda.current_stream(t.device).cuda_stream), "expf_neg")
+    kernels.launch(lib.expf_neg_f32, t.device, "expf_neg", t.data_ptr(),
+                   out.data_ptr(), t.numel())
     return out
 
 

@@ -52,10 +52,9 @@ def ell_mv_cuda(cols: torch.Tensor, vals: torch.Tensor,
     K, n = cols.shape
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     lib = kernels.library("ell_spmv", {f: _SIG for f in _FN.values()})
-    err = getattr(lib, _FN[x.dtype])(
-        cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(), K, n,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(err, "ell_spmv")
+    kernels.launch(getattr(lib, _FN[x.dtype]), x.device, "ell_spmv",
+                   cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
+                   y.data_ptr(), K, n)
     ell_mv.launches += 1
     if x.dtype == torch.float64:
         ell_mv.launches_f64 += 1

@@ -245,12 +245,11 @@ def tile_density_cuda(blk_ptr, atile, pts, anc, atoms, *, n_q: int,
         raise ValueError("tile_density_cuda: inconsistent plan shapes")
     out = torch.empty(n_out, n_q, dtype=torch.float32, device=pts.device)
     lib = kernels.library("tile_density", {"tile_density_f32": _SIG})
-    err = lib.tile_density_f32(
+    kernels.launch(
+        lib.tile_density_f32, pts.device, "tile_density",
         blk_ptr.data_ptr(), atile.data_ptr(), pts.data_ptr(), anc.data_ptr(),
         atoms.data_ptr(), out.data_ptr(), nb, n_q, cpb, a_tile,
-        atoms.shape[1], n_out, inv_rc2, cut2, h0, scale,
-        torch.cuda.current_stream(pts.device).cuda_stream)
-    kernels.check(err, "tile_density")
+        atoms.shape[1], n_out, inv_rc2, cut2, h0, scale)
     tile_density.launches += 1
     return out
 

@@ -2,6 +2,7 @@
 
     python -m coulomb_gmg_tpu_torch.parallel.multihost <rank> <world> <port>
         [--device cpu|cuda:N] [--backend gloo|nccl] [--problem small|8k]
+        [--fused | --no-fused]
 
 The port of tests/multihost_worker.py: ``world`` processes, each owning 2
 shards of a ``D = 2 * world`` shard ``SpmdContext``, joined into one
@@ -23,11 +24,16 @@ the JAX worker's two solves:
    (``production_scaling_config(10, dtype="float64",
    n_adaptive_cycles=3)``, cycle 2's system).
 
-Each solve runs with the halo plan and again with ``halo=False`` (every
-import an all-gather); both must give the same bits.  Rank 0 then runs the
-one-process D-shard solves of the same systems and reports whether they
-are ``torch.equal`` to the multi-process ones.  Every rank prints one JSON
-line: the JAX worker's keys (``devices``, ``iters``, ``rel_res``,
+Both solves run in the stepped form (``--fused``, the default: the
+driver's ``solve_fused``; across processes its segments run uncaptured,
+one call a replay) or as the eager loops (``--no-fused``); the line says
+which (``fused``, and each solver's ``mode``).  Each solve runs with the
+halo plan and again with ``halo=False`` (every import an all-gather); both
+must give the same bits.  Rank 0 then runs the one-process D-shard solves
+of the same systems, in the same form and in the other, and reports
+whether they are ``torch.equal`` to the multi-process ones.  Every rank
+prints one JSON line: the JAX worker's keys (``devices``, ``iters``,
+``rel_res``,
 ``checksum``, ``local_norm``, ``gmg_*``), the ELL kernel's launches in the
 two halo-plan solves, the true residual, the wall, build and solve
 seconds, the bytes that halo imports and coarse gathers sent to the other
@@ -103,9 +109,9 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def jacobi(ctx, halo: bool):
+def jacobi(ctx, halo: bool, fused: bool):
     """The sharded Jacobi-CG of tests/multihost_worker.py; returns (local
-    blocks, iterations, |r0|, |r|)."""
+    blocks, iterations, |r0|, |r|, the solver's ``info``)."""
     from coulomb_gmg_tpu_torch.parallel.sharded import (
         ShardedCSR, make_sharded_solver, put_blocks, shard_vector,
         sharded_diag)
@@ -114,22 +120,23 @@ def jacobi(ctx, halo: bool):
     b = np.random.default_rng(7).standard_normal(n)
     solver = make_sharded_solver(ctx, A, sharded_diag(A, ctx.D),
                                  tol_rtol=1e-10, maxiter=2000, damping=0.6,
-                                 halo=halo)
+                                 halo=halo, fused=fused)
     rhs = put_blocks(shard_vector(b, ctx.D), ctx)
-    return solver(rhs, [torch.zeros_like(v) for v in rhs])
+    return (*solver(rhs, [torch.zeros_like(v) for v in rhs]), solver.info)
 
 
-def gmg(ctx, sim, halo: bool):
+def gmg(ctx, sim, halo: bool, fused: bool):
     """``ShardedGMG`` on ``sim``'s last system; returns (solver, local
     blocks, iterations, |r0|, |r|, build seconds, solve seconds)."""
     from coulomb_gmg_tpu_torch.parallel.sharded_gmg import ShardedGMG
     t0 = time.perf_counter()
     sg = ShardedGMG(sim.gmg, sim.A, ctx, dtype=sim.dtype, maxiter=50,
-                    halo=halo)
+                    halo=halo, fused=fused)
     _sync(ctx.devices[0])
     t1 = time.perf_counter()
     xb, k, res0, res = sg.solve_global(np.asarray(sim.rhs), rtol=1e-8)
     _sync(ctx.devices[0])
+    sg.release()
     return sg, xb, k, res0, res, t1 - t0, time.perf_counter() - t1
 
 
@@ -154,7 +161,7 @@ def true_residual(A, b, x) -> float:
 
 
 def run(rank: int, world: int, port: int, device: str, backend: str,
-        problem_name: str) -> dict:
+        problem_name: str, fused: bool = True) -> dict:
     import torch.distributed as dist
     from coulomb_gmg_tpu_torch.ops.ell import ell_mv
     from coulomb_gmg_tpu_torch.parallel.spmd import CommStats, SpmdContext
@@ -170,18 +177,19 @@ def run(rank: int, world: int, port: int, device: str, backend: str,
         torch.cuda.reset_peak_memory_stats(dev)
     out = {"rank": rank, "world": world, "backend": backend,
            "device": str(dev), "devices": D, "shards": ctx.shards,
-           "problem": problem_name}
+           "problem": problem_name, "fused": fused}
 
     # ---- 1. sharded Jacobi-CG
     ell_mv.launches = 0
-    xb, k, res0, res = jacobi(ctx, True)
+    xb, k, res0, res, info = jacobi(ctx, True, fused)
     launches = ell_mv.launches
     x_jac = full(ctx, xb)
-    out.update(iters=int(k), rel_res=float(res) / float(res0),
+    out.update(jacobi_mode=info["mode"], iters=int(k),
+               rel_res=float(res) / float(res0),
                checksum=checksum(ctx, xb),
                local_norm=float(torch.linalg.norm(
                    torch.cat([x.cpu() for x in xb]))))
-    xb_g = jacobi(ctx, False)[0]
+    xb_g = jacobi(ctx, False, fused)[0]
     jac_gather_equal = torch.equal(full(ctx, xb_g), x_jac)
 
     # ---- 2. ShardedGMG on the replicated problem's last system
@@ -192,7 +200,7 @@ def run(rank: int, world: int, port: int, device: str, backend: str,
     out["n_dofs"] = int(sim.A.n_rows)
     ell_mv.launches = 0
     ctx.stats = CommStats()
-    sg, xg, kg, res0g, resg, t_build, t_solve = gmg(ctx, sim, True)
+    sg, xg, kg, res0g, resg, t_build, t_solve = gmg(ctx, sim, True, fused)
     launches += ell_mv.launches
     stats, ctx.stats = ctx.stats, CommStats()
     vcycles = len(sg.coarse_iterations)
@@ -205,6 +213,7 @@ def run(rank: int, world: int, port: int, device: str, backend: str,
         gmg_checksum=checksum(ctx, xg),
         gmg_local_norm=float(torch.linalg.norm(
             torch.cat([x.cpu() for x in xg]))),
+        gmg_mode=sg.solve_info()["mode"], gmg_reads=sg.solve_info()["reads"],
         gmg_levels=len(sg.levels), gmg_build_s=t_build, gmg_solve_s=t_solve,
         vcycles=vcycles, coarse_cg=list(sg.coarse_iterations),
         halo_bytes_per_vcycle=stats.bytes.get("halo", 0) / max(vcycles, 1),
@@ -212,20 +221,25 @@ def run(rank: int, world: int, port: int, device: str, backend: str,
         / max(vcycles, 1),
         comm_calls=dict(stats.calls), comm_bytes=dict(stats.bytes),
         comm_s=dict(stats.seconds), ell_launches=launches)
-    xg_g = gmg(ctx, sim, False)[1]
+    xg_g = gmg(ctx, sim, False, fused)[1]
     out["gather_equal"] = {"jacobi": jac_gather_equal,
                            "gmg": torch.equal(full(ctx, xg_g), x_gmg)}
 
-    # ---- the one-process D-shard solves of the same systems (rank 0)
+    # ---- the one-process D-shard solves of the same systems (rank 0), in
+    # this form and in the other
     if rank == 0:
         one = SpmdContext(D, [dev] * D)
-        xb1, k1 = jacobi(one, True)[:2]
-        g1 = gmg(one, sim, True)
-        out["one_process_equal"] = {
-            "jacobi": bool(k1 == k and torch.equal(full(one, xb1), x_jac)),
-            "gmg": bool(g1[2] == kg and torch.equal(full(one, g1[1]),
-                                                    x_gmg))}
-        out["one_process_gmg_solve_s"] = g1[6]
+        for key, form in (("one_process_equal", fused),
+                          ("other_form_equal", not fused)):
+            xb1, k1 = jacobi(one, True, form)[:2]
+            g1 = gmg(one, sim, True, form)
+            out[key] = {
+                "jacobi": bool(k1 == k and torch.equal(full(one, xb1),
+                                                       x_jac)),
+                "gmg": bool(g1[2] == kg and torch.equal(full(one, g1[1]),
+                                                        x_gmg))}
+            if form == fused:
+                out["one_process_gmg_solve_s"] = g1[6]
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                        if dev.type == "cuda" else None)
     out["wall_s"] = time.perf_counter() - t_start
@@ -304,9 +318,10 @@ def env_with_root(**extra) -> dict:
 
 
 def launch(devices: list, backend: str, problem_name: str,
-           timeout_s: float) -> list:
-    """Run one worker per entry of ``devices`` (rank r on ``devices[r]``)
-    and return their JSON lines in rank order.  If a worker fails, or the
+           timeout_s: float, fused: bool = True) -> list:
+    """Run one worker per entry of ``devices`` (rank r on ``devices[r]``),
+    in the stepped form or the eager one (``fused``), and return their
+    JSON lines in rank order.  If a worker fails, or the
     run outlasts ``timeout_s``, every worker still running is killed and
     RuntimeError carries each rank's exit code and the end of its
     stderr."""
@@ -314,7 +329,8 @@ def launch(devices: list, backend: str, problem_name: str,
     outs = run_ranks(lambda r, port: (
         [sys.executable, "-m", MODULE, str(r), str(len(devices)), str(port),
          "--device", devices[r], "--backend", backend, "--problem",
-         problem_name], env), len(devices), timeout_s)
+         problem_name, "--fused" if fused else "--no-fused"], env),
+        len(devices), timeout_s)
     failed = [f"rank {r}: exit {rc}\n{err}"
               for r, (rc, _, err) in enumerate(outs) if rc != 0]
     if failed:
@@ -331,10 +347,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--backend", choices=["gloo", "nccl"], default="gloo")
     ap.add_argument("--problem", choices=["small", "8k"], default="small")
+    ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
+                    default=True, help="the stepped solves (default) or "
+                    "the eager loops")
     args = ap.parse_args(argv)
     torch.set_num_threads(2)
     out = run(args.rank, args.world, args.port, args.device, args.backend,
-              args.problem)
+              args.problem, args.fused)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -25,6 +25,11 @@ and scalar all-reduces inside CG (src/step-50.cc:653-657, 831-832):
   the ghosts that another rank owns arrive in one ``all_to_all_single``
   per import (``SpmdContext.exchange``), each at the place the
   one-process plan gives it.
+
+:func:`make_sharded_solver` is the sharded Jacobi-CG in two forms: the
+eager host loop, and (``fused``, the default) the stepped solve of
+solver/fused.py:SteppedCG, CUDA graphs when every local shard is on one
+card of one process.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import numpy as np
 import torch
 
 from coulomb_gmg_tpu_torch.ops.ell import ELL, ell_mv
+from coulomb_gmg_tpu_torch.solver.cg import to_host
+from coulomb_gmg_tpu_torch.solver.fused import SteppedCG
 
 
 def round_up(x: int, m: int) -> int:
@@ -238,12 +245,23 @@ def apply_ells(ells: list, ext: list) -> list:
 
 def make_sharded_solver(ctx, A: ShardedCSR, diag_block,
                         tol_rtol: float = 1e-8, maxiter: int = 500,
-                        damping: float = 0.6, halo: bool = True):
+                        damping: float = 0.6, halo: bool = True,
+                        fused: bool = True):
     """Sharded Jacobi-preconditioned CG (the reference's Jacobi solve
-    path, src/step-50.cc:996-1005).
+    path, src/step-50.cc:996-1005), iterating while ``|r| >= tol`` and
+    ``k < maxiter``, ``tol = tol_rtol |rhs|``.  JAX runs it as one
+    while loop in one executable.  ``fused`` (the driver's
+    ``solve_fused``): the stepped solve of solver/fused.py:SteppedCG, its
+    state on the device, one host read per iteration (and one of
+    ``|rhs|`` for the tolerance, as the eager loop), its two segments
+    CUDA graphs when every local shard is on one card of one process
+    (``SpmdContext.graph_mode``), captured for each call and released
+    after it; else the eager host loop, which reads the norms as it goes.
+    Both give the same bits.
 
     Returns fn(rhs_blocks, x0_blocks) -> (x_blocks, iters, |r0|, |r|);
-    blocks are lists of per-shard (block,) tensors (:func:`put_blocks`)."""
+    blocks are lists of per-shard (block,) tensors (:func:`put_blocks`).
+    ``fn.info`` holds the last call's ``mode`` and host ``reads``."""
     D = ctx.D
     plan = HaloPlan.build(A.cols, A.block, D, halo)
     dtype = torch.float64 if np.asarray(A.data[0]).dtype == np.float64 \
@@ -251,22 +269,27 @@ def make_sharded_solver(ctx, A: ShardedCSR, diag_block,
     ells = shard_ells(A.rows_local, plan.cols_local, A.data, A.block, ctx,
                       dtype)
     inv_diag = put_blocks(damping / np.asarray(diag_block), ctx, dtype)
+    if not plan.gather:
+        plan.routes(ctx)
 
     def matvec(xs):
         return apply_ells(ells, halo_import(xs, plan, ctx))
+
+    def precond(rs):
+        return [m * v for m, v in zip(inv_diag, rs)]
 
     def dot(a, b):
         return ctx.psum([torch.dot(x, y) for x, y in zip(a, b)])
 
     def norm(a):
-        return float(torch.sqrt(dot(a, a)[0]))
+        return torch.sqrt(dot(a, a)[0])
 
-    def run(rhs_b, x0_b):
+    def eager(rhs_b, x0_b):
         x = list(x0_b)
         r = [b - y for b, y in zip(rhs_b, matvec(x))]
-        res0 = norm(r)
-        tol = tol_rtol * norm(rhs_b)
-        z = [m * v for m, v in zip(inv_diag, r)]
+        res0 = to_host(norm(r))
+        tol = tol_rtol * to_host(norm(rhs_b))
+        z = precond(r)
         p = z
         rho = dot(r, z)
         res, k = res0, 0
@@ -275,8 +298,8 @@ def make_sharded_solver(ctx, A: ShardedCSR, diag_block,
             alpha = [a / b for a, b in zip(rho, dot(p, q))]
             x = [xi + a * pi for xi, a, pi in zip(x, alpha, p)]
             r = [ri - a * qi for ri, a, qi in zip(r, alpha, q)]
-            res = norm(r)
-            z = [m * v for m, v in zip(inv_diag, r)]
+            res = to_host(norm(r))
+            z = precond(r)
             rho_new = dot(r, z)
             p = [zi + (a / b) * pi for zi, a, b, pi in zip(z, rho_new, rho,
                                                             p)]
@@ -284,6 +307,29 @@ def make_sharded_solver(ctx, A: ShardedCSR, diag_block,
             k += 1
         return x, k, res0, res
 
+    def run(rhs_b, x0_b):
+        reads = to_host.reads
+        if not fused:
+            out = eager(rhs_b, x0_b)
+            run.info = {"mode": "eager: host loop"}
+        else:
+            capture, mode = ctx.graph_mode()
+            st = SteppedCG(matvec, precond, dot, norm, list(rhs_b),
+                           capture=capture)
+            try:
+                out = tuple(st.solve(rhs_b, x0_b,
+                                     tol_rtol * to_host(norm(rhs_b)),
+                                     maxiter))
+            finally:
+                st.release()
+            seg = st.segments
+            run.info = {"mode": mode, "capture_s": seg.capture_s,
+                        "instantiate_s": seg.instantiate_s,
+                        "warmup": dict(seg.warmup)}
+        run.info["reads"] = to_host.reads - reads
+        return out
+
+    run.info = {}
     return run
 
 

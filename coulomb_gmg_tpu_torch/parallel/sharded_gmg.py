@@ -32,9 +32,24 @@ builds the host plans of all D shards from the same operators and keeps
 the ELLs of its own shards; :meth:`ShardedGMG.solve_global` returns the
 local blocks and :meth:`ShardedGMG.solve` the full solution on every rank.
 
-The outer CG and the coarse CG are host loops that read one scalar per
-iteration.  The JAX module's single shard_map executable, its padded
-all_to_all tables and its pow2 buckets have no counterpart.
+The solve has two forms.  The JAX module runs it as one shard_map
+executable, the outer CG and the coarse CG inside every V-cycle each a
+``lax.while_loop``.  With ``fused=True`` (the driver's ``solve_fused``,
+the default) the port runs it as device state and five segments
+(:class:`_SteppedShardedGMG`, on solver/fused.py's ``Segments``): up to
+the level-0 defect and the coarse start, one coarse iteration, the rest
+of the start, and the head and tail of a CG step around the coarse loop.
+The host reads the solve's state before every step and the coarse CG's
+(active, k) before every coarse iteration: ``k + 1 + sum(kc + 1)`` reads
+for k CG steps and k + 1 V-cycles of kc coarse iterations each.  When
+every local shard is on one card of one process the segments are CUDA
+graphs, captured at the first solve and kept until ``release()``;
+across cards or processes they run uncaptured, one call a replay
+(``SpmdContext.graph_mode``; ``solve_info()`` says which).
+``fused=False`` runs the eager loops: host loops that read the same
+scalars as they go, through solver/cg.py:to_host.  Both forms give the
+same bits.  The JAX module's padded all_to_all tables and its pow2
+buckets have no counterpart.
 """
 
 from __future__ import annotations
@@ -49,6 +64,9 @@ from coulomb_gmg_tpu_torch.ops.ell import ELL, ell_mv
 from coulomb_gmg_tpu_torch.ops.spmv import transpose_pattern
 from coulomb_gmg_tpu_torch.parallel.sharded import (
     HaloPlan, apply_ells, block_coo, halo_import, round_up, shard_ells)
+from coulomb_gmg_tpu_torch.solver.cg import to_host
+from coulomb_gmg_tpu_torch.solver.fused import CoarseCG, Segments, _assign
+from coulomb_gmg_tpu_torch.solver.gmg import _safe_div
 from coulomb_gmg_tpu_torch.solver.tpu_gmg import _power_lmax
 
 
@@ -102,13 +120,18 @@ class _Level:
 
 class ShardedGMG:
     """Sharded GMG-CG, its operators built on the host (the JAX
-    ``ShardedGMG``; the SpmdContext takes the place of its device mesh)."""
+    ``ShardedGMG``; the SpmdContext takes the place of its device mesh).
+    ``fused``: the stepped solve (module docstring), else the eager
+    loops."""
 
     def __init__(self, gmg, sys_csr, ctx, dtype: torch.dtype = torch.float32,
                  smoother_degree: int = 4, smoothing_range: float = 8.0,
                  coarse_maxiter: int = 500, coarse_rtol: float = 1e-10,
-                 maxiter: int = 50, halo: bool = True):
+                 maxiter: int = 50, halo: bool = True, fused: bool = True):
         self.ctx = ctx
+        self.fused = fused
+        self.stepped = None
+        self._info = {}
         self.D = D = ctx.D
         self.dtype = dtype
         self.np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -229,7 +252,7 @@ class ShardedGMG:
         """Jacobi-preconditioned CG on the gathered level-0 defect to
         ``coarse_rtol`` (relative) or ``coarse_maxiter`` iterations, once
         per distinct local device; each shard takes its block."""
-        ctx, blk = self.ctx, self.levels[0].block
+        ctx = self.ctx
         full = ctx.all_gather(d0, "coarse")
         sol = {}
         for i, dev in enumerate(ctx.devices):
@@ -239,11 +262,24 @@ class ShardedGMG:
                                          self.coarse_rtol,
                                          self.coarse_maxiter)
         self.coarse_iterations.append(k)
+        return self._coarse_blocks(sol)
+
+    def _coarse_blocks(self, sol: dict) -> list:
+        """Each local shard's block of the coarse solution ``sol[device]``."""
+        blk = self.levels[0].block
         return [sol[dev][d * blk:(d + 1) * blk]
-                for d, dev in zip(ctx.shards, ctx.devices)]
+                for d, dev in zip(self.ctx.shards, self.ctx.devices)]
 
     def vcycle(self, g: list) -> list:
         """One V-cycle on the per-shard global defect ``g``."""
+        defect, sol = self._down(g)
+        sol[0] = self._coarse_solve(defect[0])
+        return self._up(defect, sol)
+
+    def _down(self, g: list):
+        """The first half of a V-cycle: copy ``g`` to the levels,
+        pre-smooth and restrict down to level 0.  Returns (defect per
+        level, smoothed solution per level, None at 0)."""
         ctx, levels = self.ctx, self.levels
         L = len(levels) - 1
         gext = halo_import(g, self.sys_plan, ctx)
@@ -260,8 +296,13 @@ class ShardedGMG:
             defect[l - 1] = [a + b for a, b in zip(
                 defect[l - 1], apply_ells(lv.R, rext))]
             sol[l] = u
-        sol[0] = self._coarse_solve(defect[0])
-        for l in range(1, L + 1):
+        return defect, sol
+
+    def _up(self, defect: list, sol: list) -> list:
+        """The second half: prolongate from the coarse solution ``sol[0]``,
+        post-smooth and copy back to the global layout."""
+        ctx, levels = self.ctx, self.levels
+        for l in range(1, len(levels)):
             lv, lc = levels[l], levels[l - 1]
             cext = halo_import(sol[l - 1], lc.plan, ctx)
             u = [s + y for s, y in zip(sol[l], apply_ells(lc.P, cext))]
@@ -275,6 +316,12 @@ class ShardedGMG:
             part = apply_ells(lv.copy_from, halo_import(sol[l], lv.plan, ctx))
             out = part if out is None else [a + b for a, b in zip(out, part)]
         return out
+
+    def _sys_mv(self, v: list) -> list:
+        return apply_ells(self.sys, halo_import(v, self.sys_plan, self.ctx))
+
+    def _norm(self, v: list) -> torch.Tensor:
+        return torch.sqrt(self._pdot(v, v)[0])
 
     # ------------------------------------------------------------------
 
@@ -291,23 +338,38 @@ class ShardedGMG:
         blk = self.block
         put = lambda a: [torch.from_numpy(a[d * blk:(d + 1) * blk]).to(dev)
                          for d, dev in zip(ctx.shards, ctx.devices)]
-        bs, x = put(b), put(x0p)
+        reads = to_host.reads
+        if not self.fused:
+            out = self._eager_cg(put(b), put(x0p), tol)
+            self._info = {"mode": "eager: host loops"}
+        else:
+            if self.stepped is None:
+                self.stepped = _SteppedShardedGMG(self)
+            seg = self.stepped.segments
+            fresh = seg.graphs is None
+            out = self.stepped.solve(put(b), put(x0p), tol)
+            fresh = fresh and seg.graphs is not None
+            self._info = {"mode": self.stepped.mode,
+                          "capture_s": seg.capture_s if fresh else 0.0,
+                          "instantiate_s": (seg.instantiate_s if fresh
+                                            else 0.0),
+                          "warmup": dict(seg.warmup) if fresh else {}}
+        self._info["reads"] = to_host.reads - reads
+        return out
 
-        def sys_mv(v):
-            return apply_ells(self.sys, halo_import(v, self.sys_plan, ctx))
-
-        r = [bi - y for bi, y in zip(bs, sys_mv(x))]
-        res0 = float(torch.sqrt(self._pdot(r, r)[0]))
+    def _eager_cg(self, bs: list, x: list, tol: float):
+        r = [bi - y for bi, y in zip(bs, self._sys_mv(x))]
+        res0 = to_host(self._norm(r))
         z = self.vcycle(r)
         p = z
         rho = self._pdot(r, z)
         res, k = res0, 0
         while res > tol and k < self.maxiter:
-            q = sys_mv(p)
+            q = self._sys_mv(p)
             alpha = [_safe_div(a, b) for a, b in zip(rho, self._pdot(p, q))]
             x = [xi + a * pi for xi, a, pi in zip(x, alpha, p)]
             r = [ri - a * qi for ri, a, qi in zip(r, alpha, q)]
-            res = float(torch.sqrt(self._pdot(r, r)[0]))
+            res = to_host(self._norm(r))
             z = self.vcycle(r)
             rho_new = self._pdot(r, z)
             p = [zi + _safe_div(a, b) * pi
@@ -323,9 +385,169 @@ class ShardedGMG:
         x = self.ctx.all_gather(xb)[0].cpu().numpy()[: self.n]
         return x.astype(np.float64), k, res0, res
 
+    def solve_info(self) -> dict:
+        """How the last solve ran: ``mode`` (the form, and for the stepped
+        one whether its segments are CUDA graphs, and why) and ``reads``
+        (its host reads); for the stepped form also the seconds of the
+        capture and instantiation that this solve made, and the warm-up
+        launches before it (none when the graphs existed already, or
+        when the segments run uncaptured)."""
+        return dict(self._info)
 
-def _safe_div(a, b):
-    return torch.where(b != 0, a / torch.where(b != 0, b, 1.0), 0.0)
+    def release(self) -> None:
+        """Drop the stepped solve's graphs and state (the next solve makes
+        them anew)."""
+        if self.stepped is not None:
+            self.stepped.release()
+            self.stepped = None
+
+
+class _SteppedShardedGMG:
+    """:meth:`ShardedGMG.solve_global`'s loops as device state and
+    segments, op for op the eager loops' arithmetic, stopping tests
+    included: the outer ``res > tol`` (``res = sqrt(psum(r . r))`` in the
+    working type against ``tol`` rounded to it, compared in float64) and
+    ``k < maxiter``; the coarse ``r2 > rtol^2 r2_0`` in float64
+    (solver/fused.py:CoarseCG).  The per-shard state lives on the shards'
+    devices, the solve's scalars on the first; the coarse CG's state once
+    per distinct local device, as ``_coarse_solve`` runs it.  Like the
+    eager loop, the step runs a V-cycle after the last residual test."""
+
+    def __init__(self, sg: ShardedGMG):
+        ctx = sg.ctx
+        self.sg = sg
+        capture, self.mode = ctx.graph_mode()
+        dt = sg.dtype
+        vecs = lambda n: [torch.zeros(n, dtype=dt, device=dev)
+                          for dev in ctx.devices]
+        self.rhs, self.x, self.r, self.p = (vecs(sg.block) for _ in range(4))
+        self.rho = [torch.zeros((), dtype=dt, device=dev)
+                    for dev in ctx.devices]
+        dev0 = ctx.devices[0]
+        scalar = lambda t: torch.zeros((), dtype=t, device=dev0)
+        self.res0, self.res = scalar(dt), scalar(dt)
+        self.tol = scalar(torch.float64)
+        self.k, self.maxiter = scalar(torch.int32), scalar(torch.int32)
+        self.active = scalar(torch.bool)
+        self.info = torch.zeros(4, dtype=torch.float64, device=dev0)
+        self.defect = [vecs(lv.block) for lv in sg.levels]
+        self.sol = [vecs(lv.block) for lv in sg.levels[1:]]
+        n0 = sg.levels[0].block * sg.D
+        self.coarse = {
+            dev: CoarseCG(lambda v, e=e: ell_mv(*e, v),
+                          lambda r, m=inv: m * r, n0, sg.coarse_rtol,
+                          sg.coarse_maxiter, dt, dev)
+            for dev, (e, inv) in sg._coarse_ops.items()}
+        self.coarse0 = self.coarse[dev0]
+        # the import index sets exist before any capture: no copy from
+        # the host inside a segment
+        for plan in [sg.sys_plan] + [lv.plan for lv in sg.levels]:
+            if not plan.gather:
+                plan.routes(ctx)
+        self.segments = Segments({"start_head": self._start_head,
+                                  "start_tail": self._start_tail,
+                                  "step_head": self._step_head,
+                                  "step_tail": self._step_tail,
+                                  "coarse": self._coarse_step},
+                                 dev0, capture)
+
+    def solve(self, bs: list, x0: list, tol: float):
+        self.segments.prepare()
+        _assign(self.rhs + self.x, bs + x0)
+        self.tol.fill_(tol)
+        self.maxiter.fill_(self.sg.maxiter)
+        run = self.segments.run
+        run("start_head")
+        self._coarse_loop()
+        run("start_tail")
+        while True:
+            active, k, res0, res = to_host(self.info)
+            if not active:
+                break
+            run("step_head")
+            self._coarse_loop()
+            run("step_tail")
+        return [x.clone() for x in self.x], int(k), res0, res
+
+    def release(self) -> None:
+        self.segments.release()
+
+    def _coarse_loop(self) -> None:
+        """Coarse iterations while the first device's coarse CG is active
+        (every device's computes the same bits); its k goes to
+        ``coarse_iterations``."""
+        while True:
+            active, k = to_host(self.coarse0.info)
+            if not active:
+                break
+            self.segments.run("coarse")
+        self.sg.coarse_iterations.append(k)
+
+    # ------------------------------------------------------------ segments
+
+    def _down(self, r: list) -> None:
+        sg = self.sg
+        defect, sol = sg._down(r)
+        for bufs, d in zip(self.defect, defect):
+            _assign(bufs, d)
+        for bufs, s in zip(self.sol, sol[1:]):
+            _assign(bufs, s)
+        full = dict(zip(sg.ctx.devices,
+                        sg.ctx.all_gather(self.defect[0], "coarse")))
+        for dev, c in self.coarse.items():
+            c.start(full[dev])
+
+    def _up(self) -> list:
+        sol0 = self.sg._coarse_blocks({dev: c.x for dev, c in
+                                       self.coarse.items()})
+        return self.sg._up(list(self.defect), [sol0] + list(self.sol))
+
+    def _test(self) -> None:
+        self.active.copy_((self.res.double() > self.tol)
+                          & (self.k < self.maxiter))
+        self.info.copy_(torch.stack([self.active.double(), self.k.double(),
+                                     self.res0.double(), self.res.double()]))
+
+    def _start_head(self) -> None:
+        r = [b - y for b, y in zip(self.rhs, self.sg._sys_mv(self.x))]
+        res = self.sg._norm(r)
+        _assign(self.r, r)
+        self.res0.copy_(res)
+        self.res.copy_(res)
+        self._down(r)
+
+    def _start_tail(self) -> None:
+        z = self._up()
+        _assign(self.p, z)
+        _assign(self.rho, self.sg._pdot(self.r, z))
+        self.k.zero_()
+        self._test()
+
+    def _step_head(self) -> None:
+        sg = self.sg
+        q = sg._sys_mv(self.p)
+        alpha = [_safe_div(a, b) for a, b in zip(self.rho,
+                                                 sg._pdot(self.p, q))]
+        x = [xi + a * pi for xi, a, pi in zip(self.x, alpha, self.p)]
+        r = [ri - a * qi for ri, a, qi in zip(self.r, alpha, q)]
+        _assign(self.x, x)
+        _assign(self.r, r)
+        self.res.copy_(sg._norm(r))
+        self._down(r)
+
+    def _step_tail(self) -> None:
+        z = self._up()
+        rho = self.sg._pdot(self.r, z)
+        p = [zi + _safe_div(a, b) * pi
+             for zi, a, b, pi in zip(z, rho, self.rho, self.p)]
+        _assign(self.p, p)
+        _assign(self.rho, rho)
+        self.k.add_(1)
+        self._test()
+
+    def _coarse_step(self) -> None:
+        for c in self.coarse.values():
+            c.step()
 
 
 def _jacobi_cg(cols, vals, inv_diag, d, rtol: float, maxiter: int):
@@ -334,7 +556,7 @@ def _jacobi_cg(cols, vals, inv_diag, d, rtol: float, maxiter: int):
     Returns (x, iterations)."""
     x = torch.zeros_like(d)
     r = d
-    r2 = float(torch.dot(r, r))
+    r2 = to_host(torch.dot(r, r))
     tol2 = rtol ** 2 * r2
     z = inv_diag * r
     p = z
@@ -349,6 +571,6 @@ def _jacobi_cg(cols, vals, inv_diag, d, rtol: float, maxiter: int):
         rho_new = torch.dot(r, z)
         p = z + _safe_div(rho_new, rho) * p
         rho = rho_new
-        r2 = float(torch.dot(r, r))
+        r2 = to_host(torch.dot(r, r))
         k += 1
     return x, k

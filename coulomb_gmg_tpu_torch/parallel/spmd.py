@@ -18,7 +18,11 @@ process over D shards:
   interface (:meth:`psum`, :meth:`all_gather`, :meth:`exchange`, and
   parallel/sharded.py:halo_import): ``psum`` adds the per-shard partials
   in shard order on the first shard's device and broadcasts the sum, with
-  no atomics, so every sum is the same from run to run;
+  no atomics, so every sum is the same from run to run.  When every local
+  shard is on one card of one process they are copies and index gathers
+  on that card, with no read from the host and no copy from it (the
+  import index sets are made before any capture), so the stepped sharded
+  solves capture them into CUDA graphs (:meth:`SpmdContext.graph_mode`);
 * across processes (``group``, a ``torch.distributed`` process group of W
   ranks; JAX's multi-process mesh, tests/test_multihost.py): rank r owns
   the D / W shards ``[r D / W, (r + 1) D / W)`` (``shards``), ``devices``
@@ -140,6 +144,26 @@ class SpmdContext:
         """The cells shard ``d`` owns."""
         B = self.block(n_cells)
         return range(min(d * B, n_cells), min((d + 1) * B, n_cells))
+
+    def graph_mode(self):
+        """(capture, mode) of the stepped sharded solves (solver/fused.py),
+        from the topology alone: CUDA graphs when every local shard is on
+        one card of one process, where every collective below is a copy
+        on that card; otherwise the same segments run uncaptured, one call
+        a replay (a graph holds the work of one card, and a process
+        group's collectives are host calls).  ``mode`` says which and
+        why."""
+        devs = self.unique_devices
+        if self.W > 1:
+            return False, (f"stepped, uncaptured: {self.W} processes "
+                           f"({torch.distributed.get_backend(self.group)})")
+        if len(devs) > 1:
+            kind = ("cards" if all(d.type == "cuda" for d in devs)
+                    else "devices")
+            return False, f"stepped, uncaptured: {len(devs)} {kind}"
+        if devs[0].type != "cuda":
+            return False, f"stepped, uncaptured: on the {devs[0].type.upper()}"
+        return True, f"stepped, CUDA graphs: {self.D} shards on {devs[0]}"
 
     # ---------------------------------------------------------- collectives
 

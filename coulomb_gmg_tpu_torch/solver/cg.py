@@ -14,7 +14,11 @@ The JAX module has a traced ``lax.while_loop`` and a host loop with the
 same math.  Here the loop runs on the host and reads one scalar, the
 residual norm, per iteration (:func:`to_host`); the vectors stay on their
 device.  The preconditioner is any callable (Jacobi, the host SSOR sweep,
-a V-cycle).  solver/fused.py steps the same arithmetic on the device.
+a V-cycle).  solver/fused.py steps the same arithmetic on the device:
+``stepped_cg`` is this function as JAX's ``host=False`` loop, the
+driver's route for the Jacobi preconditioner under ``solve_fused``; the
+host SSOR of the GMG route stays in this host loop, as JAX runs it with
+``host=True``.
 """
 
 from __future__ import annotations

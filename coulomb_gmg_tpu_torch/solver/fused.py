@@ -29,17 +29,25 @@ prolongation and post-smoothing to the end of
 the step; ``start`` is split the same way.
 
 On the CPU the same functions run eagerly, one call standing for each
-replay, so the CPU tests run the code that the card captures.
+replay, so the CPU tests run the code that the card captures.  So do the
+stepped solves whose state spans several cards or processes (the sharded
+solves of parallel/, ``capture=False``): a segment that reads another card
+or calls a collective of a process group is not captured, it is called.
+
+:class:`SteppedCG` is solver/cg.py's CG in the same form, over per-shard
+lists: the one-device Jacobi route of the driver (one shard) and the
+sharded Jacobi-CG (parallel/sharded.py).
 """
 
 from __future__ import annotations
 
 import time
+from typing import Callable, Optional
 
 import torch
 
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
-from coulomb_gmg_tpu_torch.solver.cg import to_host
+from coulomb_gmg_tpu_torch.solver.cg import CGResult, to_host
 from coulomb_gmg_tpu_torch.solver.gmg import (_safe_div, _smooth, sys_mv,
                                               tol_squared, vcycle,
                                               vcycle_down, vcycle_up)
@@ -53,7 +61,7 @@ class Segments:
     sharing one memory pool, captured by :meth:`prepare` after a warm-up of
     every segment on a side stream (which also loads every kernel
     library); a capture or replay that fails raises.  For CPU
-    tensors :meth:`run` calls the function.
+    tensors, and with ``capture=False``, :meth:`run` calls the function.
 
     The kernel launch counters (``COUNTERS``) count what the card runs.
     The warm-up launches kernels, and the wrappers count them as they come
@@ -68,9 +76,12 @@ class Segments:
     # stream would get its own cuBLAS workspace, kept for the process's life
     _side_streams: dict = {}
 
-    def __init__(self, fns: dict, device: torch.device):
+    def __init__(self, fns: dict, device: torch.device,
+                 capture: Optional[bool] = None):
         self.fns = fns
         self.device = torch.device(device)
+        self.capture = (self.device.type != "cpu" if capture is None
+                        else capture)
         self.graphs = None
         self.launches = {}        # segment -> [(counter, launches a replay)]
         self.warmup = {}          # counter attribute -> warm-up launches
@@ -80,11 +91,11 @@ class Segments:
     def prepare(self) -> None:
         """Capture the graphs if there are none yet (on the card); the
         warm-up writes the state, so call this before loading inputs."""
-        if self.device.type != "cpu" and self.graphs is None:
+        if self.capture and self.graphs is None:
             self._capture()
 
     def run(self, name: str) -> None:
-        if self.device.type == "cpu":
+        if not self.capture:
             self.fns[name]()
             return
         self.graphs[name].replay()
@@ -142,26 +153,30 @@ class Segments:
         self.fns = {}
 
 
-class _CoarseCG:
-    """solver/gmg.py:coarse_cg as state: Chebyshev-preconditioned CG on
-    level 0, its stopping test in float64 as the eager loop makes it."""
+class CoarseCG:
+    """A preconditioned CG from zero as state, ``start`` and ``step``: the
+    coarse solves inside a V-cycle, solver/gmg.py:coarse_cg (Chebyshev) and
+    parallel/sharded_gmg.py:_jacobi_cg (Jacobi), with their stopping test
+    in float64 as the eager loops make it (``r2 > rtol^2 r2_0`` and ``k <
+    maxiter``).  ``info`` holds (active, k) for one read."""
 
-    def __init__(self, ops: dict, dtype, device):
-        self.lv = ops["levels"][0]
-        self.rtol2 = ops["coarse_rtol"] ** 2
-        self.maxiter = ops["coarse_maxiter"]
-        n0 = self.lv["inv_diag"].shape[0]
-        self.x, self.r, self.p = (torch.zeros(n0, dtype=dtype, device=device)
+    def __init__(self, mv: Callable, precond: Callable, n: int, rtol: float,
+                 maxiter: int, dtype, device):
+        self.mv, self.precond = mv, precond
+        self.rtol2 = rtol ** 2
+        self.maxiter = maxiter
+        self.x, self.r, self.p = (torch.zeros(n, dtype=dtype, device=device)
                                   for _ in range(3))
         self.rho, self.r2 = (torch.zeros((), dtype=dtype, device=device)
                              for _ in range(2))
         self.tol2 = torch.zeros((), dtype=torch.float64, device=device)
         self.k = torch.zeros((), dtype=torch.int32, device=device)
         self.active = torch.zeros((), dtype=torch.bool, device=device)
+        self.info = torch.zeros(2, dtype=torch.int32, device=device)
 
     def start(self, d0: torch.Tensor) -> None:
         r2 = torch.dot(d0, d0)
-        z = _smooth(self.lv, d0, None, True)
+        z = self.precond(d0)
         self.x.zero_()
         self.r.copy_(d0)
         self.tol2.copy_(r2.double() * self.rtol2)
@@ -172,11 +187,11 @@ class _CoarseCG:
         self._test()
 
     def step(self) -> None:
-        q = ell_mv(*self.lv["A"], self.p)
+        q = self.mv(self.p)
         alpha = _safe_div(self.rho, torch.dot(self.p, q))
         self.x.copy_(self.x + alpha * self.p)
         r = self.r - alpha * q
-        z = _smooth(self.lv, r, None, True)
+        z = self.precond(r)
         rho = torch.dot(r, z)
         self.p.copy_(z + _safe_div(rho, self.rho) * self.p)
         self.r.copy_(r)
@@ -188,6 +203,7 @@ class _CoarseCG:
     def _test(self) -> None:
         self.active.copy_((self.r2.double() > self.tol2)
                           & (self.k < self.maxiter))
+        self.info.copy_(torch.stack([self.active.int(), self.k]))
 
 
 class SteppedGMG:
@@ -217,7 +233,11 @@ class SteppedGMG:
             nl = [lv["inv_diag"].shape[0] for lv in ops["levels"]]
             self.defect = [vec(n) for n in nl]
             self.sol = [vec(n) for n in nl[1:]]
-            self.coarse = _CoarseCG(ops, dtype, dev)
+            lv0 = ops["levels"][0]
+            self.coarse = CoarseCG(lambda v: ell_mv(*lv0["A"], v),
+                                   lambda r: _smooth(lv0, r, None, True),
+                                   nl[0], ops["coarse_rtol"],
+                                   ops["coarse_maxiter"], dtype, dev)
             fns = {"start_head": self._start_head,
                    "start_tail": self._start_tail,
                    "step_head": self._step_head,
@@ -335,3 +355,119 @@ class SteppedGMG:
 
     def _step_tail(self) -> None:
         self._finish(self.r, self._up())
+
+
+class SteppedCG:
+    """solver/cg.py:cg's arithmetic as device state over per-shard lists
+    and two segments, in the order of JAX's ``cg(host=False)`` and of the
+    sharded ``while_loop``: the preconditioner right after the update (the
+    eager loops apply it at the head of the next iteration: the same
+    values, and one application more after the last test).
+
+    ``mv`` and ``precond`` map a per-shard list to a per-shard list;
+    ``dot(a, b)`` gives the global ``a . b`` once per shard, on its device;
+    ``norm(a)`` the global ``|a|`` on the first shard's device.
+    ``dealii``: the stopping rule of solver/cg.py (iterate if ``res0 >=
+    tol``, stop once ``res < tol`` or ``k >= maxiter``); else the while
+    loop's (iterate while ``res >= tol`` and ``k < maxiter``).  Host reads
+    per solve: ``k + 1``."""
+
+    def __init__(self, mv: Callable, precond: Callable, dot: Callable,
+                 norm: Callable, like: list, *, dealii: bool = False,
+                 capture: Optional[bool] = None):
+        self.mv, self.precond, self.dot, self.norm = mv, precond, dot, norm
+        self.dealii = dealii
+        zeros = lambda: [torch.zeros_like(v) for v in like]
+        self.rhs, self.x, self.r, self.p = zeros(), zeros(), zeros(), zeros()
+        self.rho = [torch.zeros((), dtype=v.dtype, device=v.device)
+                    for v in like]
+        dev = like[0].device
+        scalar = lambda dt: torch.zeros((), dtype=dt, device=dev)
+        self.res0, self.res = scalar(like[0].dtype), scalar(like[0].dtype)
+        self.tol = scalar(torch.float64)
+        self.k, self.maxiter = scalar(torch.int32), scalar(torch.int32)
+        self.active = scalar(torch.bool)
+        self.info = torch.zeros(4, dtype=torch.float64, device=dev)
+        self.segments = Segments({"start": self._start, "step": self._step},
+                                 dev, capture)
+
+    def solve(self, rhs: list, x0: list, tol: float,
+              maxiter: int) -> CGResult:
+        """CG from ``x0`` (per-shard lists); returns the solution as a
+        per-shard list of copies."""
+        self.segments.prepare()
+        _assign(self.rhs + self.x, list(rhs) + list(x0))
+        self.tol.fill_(tol)
+        self.maxiter.fill_(maxiter)
+        self.segments.run("start")
+        while True:
+            active, k, res0, res = to_host(self.info)
+            if not active:
+                break
+            self.segments.run("step")
+        return CGResult(x=[x.clone() for x in self.x], iterations=int(k),
+                        initial_residual=res0, final_residual=res)
+
+    def release(self) -> None:
+        self.segments.release()
+
+    def _start(self) -> None:
+        r = [b - y for b, y in zip(self.rhs, self.mv(self.x))]
+        res = self.norm(r)
+        z = self.precond(r)
+        _assign(self.r, r)
+        _assign(self.p, z)
+        _assign(self.rho, self.dot(r, z))
+        self.res0.copy_(res)
+        self.res.copy_(res)
+        self.k.zero_()
+        go = res.double() >= self.tol
+        self.active.copy_(go if self.dealii else go & (self.k < self.maxiter))
+        self._info()
+
+    def _step(self) -> None:
+        q = self.mv(self.p)
+        alpha = [a / b for a, b in zip(self.rho, self.dot(self.p, q))]
+        x = [xi + a * pi for xi, a, pi in zip(self.x, alpha, self.p)]
+        r = [ri - a * qi for ri, a, qi in zip(self.r, alpha, q)]
+        res = self.norm(r)
+        z = self.precond(r)
+        rho = self.dot(r, z)
+        p = [zi + (a / b) * pi for zi, a, b, pi in zip(z, rho, self.rho,
+                                                         self.p)]
+        for buf, v in ((self.x, x), (self.r, r), (self.p, p),
+                       (self.rho, rho)):
+            _assign(buf, v)
+        self.res.copy_(res)
+        self.k.add_(1)
+        go = ~(res.double() < self.tol) if self.dealii \
+            else res.double() >= self.tol
+        self.active.copy_(go & (self.k < self.maxiter))
+        self._info()
+
+    def _info(self) -> None:
+        self.info.copy_(torch.stack([self.active.double(), self.k.double(),
+                                     self.res0.double(), self.res.double()]))
+
+
+def _assign(bufs: list, values: list) -> None:
+    for b, v in zip(bufs, values):
+        b.copy_(v)
+
+
+def stepped_cg(apply_A: Callable, b: torch.Tensor,
+               x0: Optional[torch.Tensor] = None, *, precond: Callable,
+               tol: float, maxiter: int) -> CGResult:
+    """solver/cg.py:cg (its contract and its bits) as a stepped solve on
+    ``b``'s device, JAX's ``cg(host=False)``: on the card CUDA graphs,
+    captured for this call and released after it."""
+    one = lambda f: (lambda v: [f(v[0])])
+    s = SteppedCG(one(apply_A), one(precond),
+                  lambda u, v: [torch.dot(u[0], v[0])],
+                  lambda v: torch.linalg.vector_norm(v[0]), [b], dealii=True)
+    try:
+        res = s.solve([b], [torch.zeros_like(b) if x0 is None else x0], tol,
+                      maxiter)
+    finally:
+        s.release()
+    return res._replace(x=res.x[0])

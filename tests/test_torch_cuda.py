@@ -395,3 +395,156 @@ def test_graph_solve_is_the_eager_solve(card, route, monkeypatch):
     assert warmup > 0 and out[True][3] == out[False][3] + warmup > warmup
     if route == "device_ops":
         assert max(len(p) for p in out[True][2]) >= 2
+
+
+def test_sharded_graph_solve_is_the_eager_solve(card):
+    """The 8-atom float64 SPMD run on 4 shards of cuda:0 with solve_fused
+    off and on: the same bits and CG counts, the stepped ShardedGMG as
+    CUDA graphs.  Then, on its last system, the eager and the graph solve
+    from zero: equal bits, coarse iterations and norms, ELL launches of
+    the eager loop plus the warm-up's, ``k + 1 + sum(kc + 1)`` reads."""
+    out = {}
+    for fused in (False, True):
+        cfg = production_scaling_config(1, dtype="float64", n_devices=4,
+                                        n_adaptive_cycles=2,
+                                        solve_fused=fused)
+        sim = Simulation(cfg, atoms=nacl_lattice(1), device=card,
+                         pcout=Pcout(enabled=False),
+                         spmd_devices=["cuda:0"] * 4)
+        res = sim.run()
+        out[fused] = (sim.solution, [r["cg_iterations"] for r in res])
+        assert sim.gmg.solve_info()["mode"] == (
+            "stepped, CUDA graphs: 4 shards on cuda:0" if fused
+            else "eager: host loops")
+    assert np.array_equal(out[True][0], out[False][0])
+    assert out[True][1] == out[False][1]
+    sg, rhs, got = sim.gmg, np.asarray(sim.rhs), {}
+    for fused in (False, True):
+        sg.fused = fused
+        n0 = len(sg.coarse_iterations)
+        before = ell.ell_mv.launches
+        x, k, res0, res = sg.solve(rhs, None, rtol=1e-8)
+        got[fused] = (x, k, res0, res, sg.coarse_iterations[n0:],
+                      ell.ell_mv.launches - before, sg.solve_info())
+    (xe, *e, le, ie), (xg, *g, lg, ig) = got[False], got[True]
+    sg.release()
+    assert np.array_equal(xg, xe) and g == e and 1 <= g[0] <= 20
+    warm = ig["warmup"]["launches"]
+    assert warm > 0 and lg == le + warm
+    reads = g[0] + 1 + sum(kc + 1 for kc in g[3])
+    assert ig["reads"] == ie["reads"] == reads
+
+
+def test_sharded_jacobi_and_cg_graphs_are_the_eager_solves(card):
+    """The sharded Jacobi-CG on 4 shards of cuda:0 and the one-device
+    Jacobi CG, each eager and as CUDA graphs: the same bits and counts,
+    one read per iteration and one of |rhs|."""
+    from coulomb_gmg_tpu_torch.ops.smoothers import make_jacobi
+    from coulomb_gmg_tpu_torch.ops.spmv import CSR
+    from coulomb_gmg_tpu_torch.parallel.multihost import poisson_7pt
+    from coulomb_gmg_tpu_torch.parallel.sharded import (
+        ShardedCSR, make_sharded_solver, put_blocks, shard_vector,
+        sharded_diag)
+    from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
+    from coulomb_gmg_tpu_torch.solver.cg import cg
+    from coulomb_gmg_tpu_torch.solver.fused import stepped_cg
+    rows, cols, vals, n = poisson_7pt(12)
+    ctx = SpmdContext(4, ["cuda:0"] * 4)
+    A = ShardedCSR.from_coo(rows, cols, vals, n, 4)
+    bnp = np.random.default_rng(7).standard_normal(n)
+    b = put_blocks(shard_vector(bnp, 4), ctx)
+    out = {}
+    for fused in (False, True):
+        solver = make_sharded_solver(ctx, A, sharded_diag(A, 4),
+                                     tol_rtol=1e-10, maxiter=2000,
+                                     fused=fused)
+        xb, k, res0, res = solver(b, [torch.zeros_like(v) for v in b])
+        out[fused] = (torch.cat(xb), k, res0, res, solver.info)
+    assert torch.equal(out[True][0], out[False][0])
+    assert out[True][1:4] == out[False][1:4]
+    assert out[True][4]["mode"] == "stepped, CUDA graphs: 4 shards on " \
+        "cuda:0"
+    assert out[True][4]["reads"] == out[True][1] + 2
+    order = np.lexsort((cols, rows))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    csr = CSR.from_pattern(indptr, cols[order], vals[order], device=card)
+    bd = torch.from_numpy(bnp).to(card)
+    M = make_jacobi(csr, 0.6)
+    tol = 1e-10 * float(np.linalg.norm(bnp))
+    e = cg(csr.matvec, bd, None, precond=M, tol=tol, maxiter=2000)
+    s = stepped_cg(csr.matvec, bd, None, precond=M, tol=tol, maxiter=2000)
+    assert torch.equal(s.x, e.x) and tuple(s)[1:] == tuple(e)[1:]
+
+
+def test_kernels_run_on_their_operands_card(card):
+    """With cuda:0 current, the ELL and exact-gradient kernels on operands
+    on cuda:1 launch there (kernels.launch) and match their plain
+    versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(5)
+    cols = torch.from_numpy(rng.integers(0, 5000, (27, 5000),
+                                         dtype=np.int32)).to(other)
+    vals = torch.from_numpy(rng.standard_normal((27, 5000))).to(other)
+    x = torch.from_numpy(rng.standard_normal(5000)).to(other)
+    pts = torch.from_numpy(rng.random((4096, 3), np.float32)).to(other)
+    atoms = torch.from_numpy(np.concatenate(
+        [rng.random((64, 3), np.float32),
+         rng.choice([-1.0, 1.0], (64, 1)).astype(np.float32)], 1)).to(other)
+    with torch.cuda.device(0):
+        y = ell.ell_mv(cols, vals, x)
+        g = gr.exact_gradient(pts, atoms, R_C)
+    torch.cuda.synchronize(other)
+    assert y.device == g.device == other
+    yp = ell.ell_mv_plain(cols, vals, x)
+    assert float((y - yp).abs().max()) <= 1e-12 * float(yp.abs().max())
+    gp = gr.exact_gradient_plain(pts, atoms, R_C)
+    assert float((g - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
+
+
+def test_sharded_solves_across_cards(card):
+    """One shard on each of up to four cards, one process: the stepped
+    sharded solves run uncaptured ("stepped, uncaptured: N cards") and
+    give the bits and counts of the eager loops, for ShardedGMG through
+    the 8-atom float64 SPMD run and for the sharded Jacobi-CG."""
+    from coulomb_gmg_tpu_torch.parallel.multihost import poisson_7pt
+    from coulomb_gmg_tpu_torch.parallel.sharded import (
+        ShardedCSR, make_sharded_solver, put_blocks, shard_vector,
+        sharded_diag)
+    from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
+    n_cards = min(torch.cuda.device_count(), 4)
+    if n_cards < 2:
+        pytest.skip("needs two CUDA cards")
+    devices = [f"cuda:{i}" for i in range(n_cards)]
+    mode = f"stepped, uncaptured: {n_cards} cards"
+    out = {}
+    for fused in (False, True):
+        cfg = production_scaling_config(1, dtype="float64",
+                                        n_devices=n_cards,
+                                        n_adaptive_cycles=2,
+                                        solve_fused=fused)
+        sim = Simulation(cfg, atoms=nacl_lattice(1), device=card,
+                         pcout=Pcout(enabled=False), spmd_devices=devices)
+        res = sim.run()
+        out[fused] = (sim.solution, [r["cg_iterations"] for r in res],
+                      [r["coarse_cg"] for r in res])
+        assert sim.gmg.solve_info()["mode"] == (mode if fused
+                                                else "eager: host loops")
+    assert np.array_equal(out[True][0], out[False][0])
+    assert out[True][1:] == out[False][1:]
+    rows, cols, vals, n = poisson_7pt(12)
+    ctx = SpmdContext(n_cards, devices)
+    A = ShardedCSR.from_coo(rows, cols, vals, n, n_cards)
+    b = put_blocks(shard_vector(np.random.default_rng(7).standard_normal(n),
+                                n_cards), ctx)
+    jac = {}
+    for fused in (False, True):
+        solver = make_sharded_solver(ctx, A, sharded_diag(A, n_cards),
+                                     tol_rtol=1e-10, maxiter=2000,
+                                     fused=fused)
+        xb, k, res0, res = solver(b, [torch.zeros_like(v) for v in b])
+        jac[fused] = (torch.cat([x.cpu() for x in xb]), k, res0, res)
+    assert torch.equal(jac[True][0], jac[False][0])
+    assert jac[True][1:] == jac[False][1:]
+    assert solver.info["mode"] == mode

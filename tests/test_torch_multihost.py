@@ -5,9 +5,10 @@ Two worker processes of ``coulomb_gmg_tpu_torch.parallel.multihost``, 2
 shards each, joined by a gloo ``torch.distributed`` group: every ``psum``,
 coarse gather and halo import crosses the process boundary.  They must
 agree with each other (iterations, bitwise checksums, different local
-halves), with the one-process 4-shard port (``torch.equal``, reported by
-rank 0), with their own all-gather imports (``torch.equal``), and with the
-JAX package's one-process 4-device solves run live here: the same counts,
+halves), with the one-process 4-shard port in both solve forms, stepped
+(the workers' default) and eager (``torch.equal``, reported by rank 0),
+with their own all-gather imports (``torch.equal``), and with the JAX
+package's one-process 4-device solves run live here: the same counts,
 checksums within the JAX test's own tolerances (rel 1e-12 for Jacobi, 1e-10
 for GMG, tests/test_multihost.py:120, :167).  Also: the NCCL card mapping,
 the pipeline stages that raise across processes, and the CLI under
@@ -98,6 +99,22 @@ def test_sharded_gmg_across_processes(workers):
     assert a["gmg_local_norm"] != b["gmg_local_norm"]
     assert a["vcycles"] == a["gmg_iters"] + 1 == len(a["coarse_cg"])
     assert a["one_process_equal"]["gmg"] is True
+
+
+@pytest.mark.parametrize("solver", ["jacobi", "gmg"])
+def test_stepped_solves_across_processes(workers, solver):
+    """The workers ran the stepped solves (the default ``--fused``),
+    uncaptured across the two processes, and gave the bits of rank 0's
+    one-process eager loops as well as of its one-process stepped
+    solves."""
+    for r in workers:
+        assert r["fused"] is True
+        assert r[f"{solver}_mode"] == "stepped, uncaptured: 2 processes " \
+            "(gloo)"
+    assert workers[0]["other_form_equal"][solver] is True
+    a = workers[0]
+    assert a["gmg_reads"] == a["gmg_iters"] + 1 + sum(
+        kc + 1 for kc in a["coarse_cg"])
 
 
 @pytest.mark.parametrize("solver", ["jacobi", "gmg"])
