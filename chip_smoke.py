@@ -39,10 +39,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    every cycle at a true float64 residual of 1e-8 * ||b||, the solution
    finite, the earlier runs' CG counts, the ELL kernel launched (float64
    launches among them) and the tile kernel not; it prints the stage
-   seconds, the SSOR host seconds, the coarse CG iterations per V-cycle,
-   the system ELL's K and padding share and the peak device memory, and
-   times the ELL kernel on the last cycle's float64 system (K = 51)
-   beside ``torch.mv`` on a float64 CSR copy of it (cuSPARSE);
+   seconds, the SSOR host seconds, the coarse CG iterations per V-cycle
+   and the peak device memory.  Then the ELL layouts on the last cycle's
+   float64 system (K = 51): the host build of the sliced layout beside
+   the padded reference's, and the sliced kernel timed beside the padded
+   kernel on the same operator and beside ``torch.mv`` on a float64 CSR
+   copy (cuSPARSE), each timed as CUDA graphs of back-to-back calls: the
+   padded kernel must give the sliced kernel's values (``torch.equal``),
+   and the sliced kernel must take at most 1.10x cuSPARSE's time, be at
+   least 1.5x faster than the padded one and reach 60% of its bound.
+   Every level's A, P and R = P^T are timed both ways too.  On no
+   operator may the sliced samples all lie above the slowest padded one
+   (beyond the padded spread).  Each line gives the slots, padding share
+   and bytes of each layout and the bound;
 7. the other two host-assembled routes at a smaller size:
    ``examples/step-16.prm`` in float32 (tile density, ``TpuGMG`` with
    ``solve_refined``) and the same file with the Jacobi preconditioner
@@ -118,6 +127,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    graph pool and peak memory.  Then the sharded Jacobi-CG on a 64^3
    7-point Poisson matrix at 4 shards, eager and stepped: the same bits
    and count, ``k + 2`` reads each, ELL launches eager plus warm-ups.
+   Between the two, ``ShardedGMG``'s gathered float64 level 0 (K = 27) is
+   timed sliced, padded and through ``torch.mv``, with the spread gate of
+   phase 6's operators.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (launches summed over phases 4 to 13, phase 11's from both
@@ -218,9 +230,15 @@ def read_counts():
 
 def median_ms(fn, reps=REPS) -> float:
     """Median CUDA-event time of one call of ``fn`` over ``reps`` samples
-    after a warm-up run.  A sample times back-to-back calls, enough to fill
-    about SAMPLE_MS, and divides by their number: the card then runs the
-    calls without waiting for the host to launch each one."""
+    (:func:`time_samples`)."""
+    return float(np.median(time_samples(fn, reps)))
+
+
+def time_samples(fn, reps=REPS) -> list:
+    """CUDA-event times of one call of ``fn``, ``reps`` samples after a
+    warm-up run.  A sample times back-to-back calls, enough to fill about
+    SAMPLE_MS, and divides by their number: the card then runs the calls
+    without waiting for the host to launch each one."""
     import torch
 
     def sample(n):
@@ -233,7 +251,43 @@ def median_ms(fn, reps=REPS) -> float:
         b.synchronize()
         return a.elapsed_time(b) / n
     calls = min(100, max(1, int(SAMPLE_MS / sample(1))))
-    return float(np.median([sample(calls) for _ in range(reps)]))
+    return [sample(calls) for _ in range(reps)]
+
+
+def graph_samples(fns: dict, reps=REPS) -> dict:
+    """Device times of one call of each of ``fns`` (name -> callable),
+    ``reps`` samples each: per callable a CUDA graph of back-to-back calls,
+    enough to fill about SAMPLE_MS, captured once; then the graphs are
+    replayed in turns, each replay timed by CUDA events.  No host launch
+    cost enters, which :func:`time_samples` cannot avoid for a kernel
+    shorter than its wrapper's host time (the ELL on a small level), and
+    the turns spread any drift of the card over all of them."""
+    import torch
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        calls = min(100, max(1, int(SAMPLE_MS / min(time_samples(fn, 3)))))
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        graphs[name] = (g, calls)
+    out = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, (g, calls) in graphs.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            b.synchronize()
+            out[name].append(a.elapsed_time(b) / calls)
+    return out
 
 
 def bound_text(b, ms):
@@ -256,6 +310,84 @@ def ell_as_csr(cols, vals):
         return torch.sparse_csr_tensor(
             crow, cols.T[keep].contiguous(), vals.T[keep].contiguous(),
             size=(cols.shape[1], cols.shape[1]), check_invariants=False)
+
+
+def ell_layouts(tag, op, x, lib=False):
+    """One operator built from a CSR, ``op`` its sliced pair, against its
+    padded pair (``Slices.padded``, the layout ``ELL.device`` gives) on
+    ``x``: the two kernels must give equal values (``torch.equal``) and the
+    sliced one the plain version's to rel 1e-12 (float64) or 1e-6, and the
+    sliced samples must not all lie above the slowest padded one (beyond
+    the padded spread).  ``lib``: also ``torch.mv`` on a CSR copy
+    (cuSPARSE).  Prints one line with the slots and bytes of each layout,
+    the samples' medians and spreads, and the bound; returns the medians
+    (ms) and the bound.  Times are :func:`graph_samples`, device time only:
+    a small level's kernel is shorter than its wrapper's host time."""
+    import torch
+    from coulomb_gmg_tpu_torch import roofline
+    from coulomb_gmg_tpu_torch.ops import ell
+    sl, vals = op
+    pc, pv = sl.padded(vals)
+    y = ell.ell_mv_cuda(sl, vals, x)
+    if not torch.equal(y, ell.ell_mv_cuda(pc, pv, x)):
+        raise AssertionError(f"ell {tag}: the sliced kernel's values differ "
+                             f"from the padded kernel's")
+    yp = ell.ell_mv_plain(sl, vals, x)
+    err = float((y - yp).abs().max())
+    tol = 1e-12 if x.dtype == torch.float64 else 1e-6
+    if not err <= tol * max(float(yp.abs().max()), 1e-300):
+        raise AssertionError(f"ell {tag}: max err {err:.3e} vs plain")
+    fns = {"sliced": lambda: ell.ell_mv_cuda(sl, vals, x),
+           "padded": lambda: ell.ell_mv_cuda(pc, pv, x)}
+    if lib:
+        csr = ell_as_csr(pc, pv)
+        err_lib = float((torch.mv(csr, x) - yp).abs().max())
+        if not err_lib <= tol * float(yp.abs().max()):
+            raise AssertionError(f"ell {tag}: torch.mv on the CSR copy: max "
+                                 f"err {err_lib:.3e}")
+        fns["torch.mv"] = lambda: torch.mv(csr, x)
+    t = graph_samples(fns)
+    ms = {k: float(np.median(v)) for k, v in t.items()}
+    slower = min(t["sliced"]) > max(t["padded"])
+    b = roofline.ell_spmv(sl, vals, x)
+    K, n = pc.shape
+    es = 4 + vals.element_size()
+    xy = x.numel() * x.element_size() + n * vals.element_size()
+    slots = {"padded": K * n, "sliced": sl.cols.numel()}
+    print(f"[ell {tag}] K={K} rows={n} nnz={b['terms']} {x.dtype}; slots "
+          + ", ".join(f"{k} {v} ({100 * (1 - b['terms'] / max(v, 1)):.1f}% "
+                      f"padding, {v * es + xy:.4g} B)"
+                      for k, v in slots.items())
+          + "; ms median [min-max]: "
+          + ", ".join(f"{k} {ms[k]:.4f} [{min(v):.4f}-{max(v):.4f}]"
+                      for k, v in t.items())
+          + f"; padded / sliced {ms['padded'] / ms['sliced']:.3f}"
+          + (f"; sliced / torch.mv {ms['sliced'] / ms['torch.mv']:.3f}"
+             if lib else "")
+          + f"; max|err| {err:.3e}; {bound_text(b, ms['sliced'])}; "
+          + ("SLOWER than padded beyond the spread" if slower
+             else "within or below the padded spread"), flush=True)
+    if slower:
+        raise AssertionError(f"ell {tag}: sliced {min(t['sliced']):.4f}-"
+                             f"{max(t['sliced']):.4f} ms is beyond the "
+                             f"padded samples' spread {min(t['padded']):.4f}-"
+                             f"{max(t['padded']):.4f}")
+    return {**ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "err": err}
+
+
+def ell_csr_levels(gmg, tag):
+    """:func:`ell_layouts` on every level's A, P and R = P^T of a level GMG
+    built from CSRs (float64, random x): the operators of its V-cycle."""
+    import torch
+    rng = np.random.default_rng(3)
+    for lvl, (A, P) in enumerate(zip(gmg.matrices, gmg.prolongations)):
+        for key, M, tr in (("A", A, False), ("P", P, False), ("R", P, True)):
+            if M is None:
+                continue
+            x = torch.from_numpy(rng.standard_normal(
+                M.n_rows if tr else M.n_cols)).to(M.data.device)
+            ell_layouts(f"{tag} level {lvl} {key}", M.ell(transpose=tr), x)
 
 
 def ell_levels(levels, tag):
@@ -572,7 +704,6 @@ def phase_host_f64():
     from coulomb_gmg_tpu_torch.config import production_scaling_config
     from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
     from coulomb_gmg_tpu_torch.utils.logging import Pcout
-    from coulomb_gmg_tpu_torch import roofline
     from coulomb_gmg_tpu_torch.driver import Simulation
     from coulomb_gmg_tpu_torch.ops import ell
     from coulomb_gmg_tpu_torch.ops.smoothers import HostSSOR
@@ -601,37 +732,17 @@ def phase_host_f64():
     calls = sum(h.calls for h in ssor.values())
     solve_s = sum(h.solve_s for h in ssor.values())
     copy_s = sum(h.copy_s for h in ssor.values())
-    cols, vals = sim.A.ell()
-    K, n = cols.shape
-    pad = 1.0 - sim.A.nnz / (K * n)
-    x = torch.from_numpy(np.random.default_rng(4).standard_normal(n)).to(
-        cols.device)
-    err = float((ell.ell_mv_cuda(cols, vals, x)
-                 - ell.ell_mv_plain(cols, vals, x)).abs().max())
-    if not err <= 1e-12 * float(ell.ell_mv_plain(cols, vals, x).abs().max()):
-        raise AssertionError(f"host f64: system ELL kernel max err {err:.3e}")
-    csr = ell_as_csr(cols, vals)
-    err_lib = float((torch.mv(csr, x) - ell.ell_mv_plain(cols, vals, x)
-                     ).abs().max())
-    if not err_lib <= 1e-12 * float(ell.ell_mv_plain(cols, vals,
-                                                     x).abs().max()):
-        raise AssertionError(f"host f64: torch.mv on the CSR copy: max err "
-                             f"{err_lib:.3e}")
-    ms = median_ms(lambda: ell.ell_mv_cuda(cols, vals, x))
-    ms_lib = median_ms(lambda: torch.mv(csr, x))
-    b = roofline.ell_spmv(cols, vals, x)
-    print(f"[host f64] system ELL float64 (last cycle): kernel {ms:.4f} ms, "
-          f"torch.mv CSR float64 ({csr.values().numel()} nonzeros, "
-          f"cuSPARSE) {ms_lib:.4f} ms, kernel / library {ms / ms_lib:.3f}; "
-          f"max|err| {err:.3e}; {bound_text(b, ms)}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sys_ell = host_f64_system(sim)
+    ell_csr_levels(sim.gmg, "host f64")
     cg = [r["cg_iterations"] for r in res]
     print(f"[host f64] wall {wall:.2f} s; CG {cg} (earlier "
           f"{EARLIER_HOST_F64_CG}); launches {launches} "
           f"(ELL float64 {f64}); SSOR {calls} applications on "
           f"{len(ssor)} levels: host solves {solve_s:.2f} s, copies "
-          f"{copy_s:.2f} s; system ELL (last cycle) K={K} rows={n} nnz="
-          f"{sim.A.nnz} padding {100 * pad:.1f}%; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{copy_s:.2f} s; peak device memory {peak:.2f} GiB over the run, "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the "
+          f"ELL checks after it", flush=True)
     cells = [r["n_cells"] for r in res]
     if cells != REF_CELLS:
         raise AssertionError(f"host f64: cells {cells} != {REF_CELLS}")
@@ -648,7 +759,45 @@ def phase_host_f64():
             and launches["tile_density"] == 0):
         raise AssertionError(f"host f64: launch counts {launches}, float64 "
                              f"ELL {f64}")
+    if not (sys_ell["sliced"] <= 1.10 * sys_ell["torch.mv"]
+            and sys_ell["padded"] >= 1.5 * sys_ell["sliced"]
+            and sys_ell["bound_ms"] >= 0.60 * sys_ell["sliced"]):
+        raise AssertionError(f"host f64: system ELL sliced "
+                             f"{sys_ell['sliced']:.4f} ms, padded "
+                             f"{sys_ell['padded']:.4f}, torch.mv "
+                             f"{sys_ell['torch.mv']:.4f}, bound "
+                             f"{sys_ell['bound_ms']:.4f}: not within 1.10x "
+                             f"of torch.mv, 1.5x faster than padded and at "
+                             f"60% of the bound")
     return launches
+
+
+def host_f64_system(sim):
+    """Phase 6's last system (float64, K = 51): the host build of its
+    sliced layout beside the padded reference's (``ELL.from_csr``, numpy),
+    then :func:`ell_layouts` with ``torch.mv``."""
+    import torch
+    from coulomb_gmg_tpu_torch.ops.ell import ELL, SlicedELL
+    A, dev = sim.A, sim.A.data.device
+    data = A.data_np()
+    builds = {"sliced": [], "padded (numpy reference)": []}
+    for _ in range(3):
+        for name, cls in zip(builds, (SlicedELL, ELL)):
+            t0 = time.perf_counter()
+            e = cls.from_csr(A.indptr, A.indices, data)
+            t1 = time.perf_counter()
+            e.device(dev)
+            torch.cuda.synchronize()
+            builds[name].append((t1 - t0, time.perf_counter() - t0))
+            del e
+    print("[host f64] system ELL host build (s, median of 3; with the copy "
+          "to the card): " + ", ".join(
+              f"{k} {np.median([b[0] for b in v]):.4f} "
+              f"({np.median([b[1] for b in v]):.4f})"
+              for k, v in builds.items()), flush=True)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        A.n_cols)).to(dev)
+    return ell_layouts("host f64 system (last cycle)", A.ell(), x, lib=True)
 
 
 def phase_routes():
@@ -1241,6 +1390,10 @@ def phase_sharded_fused(sim):
                       st.coarse0.info)
     pool = pool_text(st.segments)
     sg.release()
+    op = next(iter(sg._coarse_ops.values()))[0]     # (Slices, vals)
+    x0 = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        op[0].n_rows)).to(op[1].device)
+    ell_layouts("sharded fused level 0 (gathered)", op, x0, lib=True)
     A64 = sim.A.ell(dtype=torch.float64)
     xd = torch.from_numpy(g["x"]).cuda()
     true = float(torch.linalg.vector_norm(torch.from_numpy(rhs).cuda()

@@ -16,8 +16,11 @@ of the JAX CLI's ``--cpu`` golden-parity mode), on whatever device
 defaults to the card and raises without one; ``--device cpu`` runs the
 kernels' plain versions.  Nothing falls back to the CPU.
 ``--no-density-tiles`` takes the mask or list density instead of the tile
-kernel; ``--profile DIR`` writes a ``torch.profiler`` trace of the run to
-``DIR/trace.json`` (Chrome / Perfetto format).
+kernel; ``--no-fused-solve`` sets ``solve_fused = False``, as the JAX CLI
+does: every device solve then runs its eager loop, one host read per CG
+iteration, in place of the stepped solve of solver/fused.py; ``--profile
+DIR`` writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``
+(Chrome / Perfetto format).
 
 ``--distributed`` joins a ``torch.distributed`` process group before the
 run, from the environment that ``torchrun`` sets (``MASTER_ADDR``,
@@ -63,6 +66,9 @@ def main(argv=None):
     ap.add_argument("--no-density-tiles", action="store_true",
                     help="the mask or list density instead of the tile "
                          "kernel")
+    ap.add_argument("--no-fused-solve", action="store_true",
+                    help="the eager solve loops instead of the stepped "
+                         "solves (CUDA graphs on the card)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler trace of the run to "
                          "DIR/trace.json (Chrome/Perfetto format)")
@@ -104,6 +110,8 @@ def _run(args, device, pcout, trace_name) -> int:
         overrides["smoother"] = args.smoother
     if args.no_density_tiles:
         overrides["density_tiles"] = False
+    if args.no_fused_solve:
+        overrides["solve_fused"] = False
     if args.float64:
         overrides["dtype"] = "float64"
     else:

@@ -515,20 +515,23 @@ void cgmg_gather_blocks(const double* src, const int64_t* idx, int64_t n_idx,
   });
 }
 
-// CSR -> ELL pad (caller-zeroed (n_pad, K) outputs; value rows memcpy
-// dtype-agnostically, columns narrow int64 -> int32).  The numpy
-// equivalent (repeat + bincount + cumsum + two fancy scatters over 50M
-// nnz) is ~2.7 s single-threaded per level operator at 64k atoms.
-void cgmg_csr_to_ell(const int64_t* indptr, const int64_t* indices,
-                     const char* data, int64_t itemsize, int64_t n_rows,
-                     int64_t K, int32_t* ecols, char* evals) {
+// CSR -> sliced ELL (caller-zeroed flat outputs; value slots memcpy
+// dtype-agnostically, columns narrow int64 -> int32): slot k of row r goes
+// to off[r / c] + c * k + r % c, the row's entries in CSR order.  The numpy
+// equivalent (repeat + fancy scatters over every nonzero) is single-threaded.
+void cgmg_csr_to_sliced(const int64_t* indptr, const int64_t* indices,
+                        const char* data, int64_t itemsize, int64_t n_rows,
+                        int64_t c, const int64_t* off, int32_t* scols,
+                        char* svals) {
   parallel_for(n_rows, [&](int64_t lo, int64_t hi, unsigned) {
     for (int64_t r = lo; r < hi; ++r) {
       const int64_t s = indptr[r], e = indptr[r + 1];
-      std::memcpy(evals + r * K * itemsize, data + s * itemsize,
-                  (e - s) * itemsize);
-      int32_t* crow = ecols + r * K;
-      for (int64_t p = s; p < e; ++p) crow[p - s] = (int32_t)indices[p];
+      const int64_t base = off[r / c] + r % c;
+      for (int64_t p = s; p < e; ++p) {
+        const int64_t t = base + c * (p - s);
+        scols[t] = (int32_t)indices[p];
+        std::memcpy(svals + t * itemsize, data + p * itemsize, itemsize);
+      }
     }
   });
 }

@@ -37,7 +37,7 @@ from coulomb_gmg_tpu_torch.utils.logging import Pcout
 ATOMS_N = 10                      # 8 * 10^3 = 8,000 atoms
 # the hand kernels' device functions (csrc/), by the name of their source
 HAND = {"tile_density": ("tile_density_kernel",),
-        "ell_spmv": ("ell_spmv_kernel",),
+        "ell_spmv": ("ell_spmv_kernel", "ell_sliced_kernel"),
         "dense_density": ("dense_density_kernel", "group_boxes_kernel"),
         "exact_gradient": ("exact_gradient_kernel",)}
 # each hand kernel's wrapper, whose ``launches`` counts its launches

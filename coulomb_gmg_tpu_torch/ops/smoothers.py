@@ -10,7 +10,7 @@ src/step-50.cc:969-973), an inherently sequential sweep:
   the defect to the host and the result back; the object counts the
   seconds of both;
 * ``mc_ssor``: multicolour (2^dim colours) symmetric Gauss-Seidel, each
-  colour's rows a padded ELL block through the ELL kernel, written back by
+  colour's rows a sliced ELL block through the ELL kernel, written back by
   an indexed write over that colour's rows (unique, so no scatter over
   repeated indices);
 * ``jacobi``: damped point Jacobi (src/step-50.cc:996-1005);
@@ -30,7 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu_torch.ops.ell import ELL, ell_mv
+from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 
 
 def make_jacobi(A, damping: float = 0.6):
@@ -96,7 +96,7 @@ def make_mc_ssor(A, color: np.ndarray, omega: float = 0.5):
     """Multicolour symmetric Gauss-Seidel: within a colour all updates are
     independent, so each half-sweep visits the colours in order with the
     update ``y_i += omega / a_ii * (r_i - A_i . y)`` on that colour's rows,
-    read from a padded per-colour ELL block (O(nnz) per half-sweep)."""
+    read from a sliced per-colour ELL block (O(nnz) per half-sweep)."""
     color = np.asarray(color)
     n_colors = int(color.max()) + 1 if len(color) else 1
     diag = A.diagonal().detach().cpu().numpy()
@@ -112,8 +112,8 @@ def make_mc_ssor(A, color: np.ndarray, omega: float = 0.5):
         src = (np.repeat(A.indptr[rows], lens)
                + np.arange(int(lens.sum()))
                - np.repeat(lens.cumsum() - lens, lens))
-        e = ELL.from_coo(np.repeat(np.arange(len(rows)), lens),
-                         A.indices[src], data[src], len(rows))
+        e = SlicedELL.from_coo(np.repeat(np.arange(len(rows)), lens),
+                               A.indices[src], data[src], len(rows))
         cols, vals = e.device(dev)
         w = torch.from_numpy(omega / diag[rows]).to(dev, A.data.dtype)
         slices.append((torch.from_numpy(rows).to(dev), cols, vals, w))

@@ -4,9 +4,9 @@ Counterpart of coulomb_gmg_tpu/ops/spmv.py.  The JAX ``csr_matvec`` is a
 gather and a segment scatter-add (``.at[rowids].add``); on CUDA a scatter
 is atomic and its order of additions varies from run to run.  Here every
 product is a gather: ``matvec`` and ``matvec_T`` run the ELL kernel
-(ops/ell.py) on a transposed ``(K, n)`` ELL of the matrix and one of its
-transpose, each built once on the host (``utils/native.py:csr_to_ell``)
-and kept on the device with the matrix.  Replaces Trilinos Epetra SpMV, the
+(ops/ell.py) on a sliced ELL of the matrix and one of its transpose, each
+built once on the host (``utils/native.py:csr_to_sliced``) and kept on the
+device with the matrix.  Replaces Trilinos Epetra SpMV, the
 workhorse of the reference's CG and V-cycle (src/step-50.cc:938-1017).
 """
 
@@ -18,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu_torch.ops.ell import ELL, ell_mv
+from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 
 
 def transpose_pattern(indptr: np.ndarray, indices: np.ndarray, n_cols: int):
@@ -74,10 +74,10 @@ class CSR:
 
     def ell(self, n_pad: Optional[int] = None,
             dtype: Optional[torch.dtype] = None, transpose: bool = False):
-        """(cols int32, vals) of the matrix (or its transpose) as a
-        transposed (K, n_pad) ELL on the data's device, K the longest row;
-        ``n_pad`` (default: the row count) adds zero rows.  Built on the
-        host once per (n_pad, dtype, transpose) and kept."""
+        """(:class:`~coulomb_gmg_tpu_torch.ops.ell.Slices`, vals): the
+        matrix (or its transpose) as a sliced ELL of ``n_pad`` rows on the
+        data's device; ``n_pad`` (default: the row count) adds zero rows.
+        Built on the host once per (n_pad, dtype, transpose) and kept."""
         dtype = dtype or self.data.dtype
         n_out = self.n_cols if transpose else self.n_rows
         n_pad = n_out if n_pad is None else n_pad
@@ -89,7 +89,8 @@ class CSR:
                 indptr, indices, perm = transpose_pattern(indptr, indices,
                                                           self.n_cols)
                 data = data[perm]
-            e = ELL.from_csr(indptr, indices, data, pad_rows_to=n_pad)
+            e = SlicedELL.from_csr(indptr, indices, data,
+                                   pad_rows_to=n_pad)
             self._ells[key] = e.device(self.data.device, dtype)
         return self._ells[key]
 

@@ -40,7 +40,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu_torch.ops.ell import ELL, ell_mv
+from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 from coulomb_gmg_tpu_torch.solver.cg import to_host
 from coulomb_gmg_tpu_torch.solver.fused import SteppedCG
 
@@ -231,10 +231,11 @@ def halo_import(xs: list, plan: HaloPlan, ctx) -> list:
 
 def shard_ells(rows_local, cols_local, data, block: int, ctx,
                dtype: torch.dtype) -> list:
-    """Per-local-shard transposed (K, block) ELL pairs on the shards'
-    devices, from the lists of all D shards."""
-    return [ELL.from_coo(rows_local[d], cols_local[d], data[d],
-                         block).device(dev, dtype)
+    """Per-local-shard sliced ELL pairs of ``block`` rows
+    (ops/ell.py:SlicedELL) on the shards' devices, from the lists of all D
+    shards."""
+    return [SlicedELL.from_coo(rows_local[d], cols_local[d], data[d],
+                               block).device(dev, dtype)
             for d, dev in zip(ctx.shards, ctx.devices)]
 
 

@@ -60,7 +60,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu_torch.ops.ell import ELL, ell_mv
+from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 from coulomb_gmg_tpu_torch.ops.spmv import transpose_pattern
 from coulomb_gmg_tpu_torch.parallel.sharded import (
     HaloPlan, apply_ells, block_coo, halo_import, round_up, shard_ells)
@@ -211,8 +211,8 @@ class ShardedGMG:
 
         # ---- the whole level-0 operator once per distinct local device
         # (coarse)
-        e0 = ELL.from_coo(*cast(_coo(gmg.matrices[0])),
-                          self.levels[0].block * D)
+        e0 = SlicedELL.from_coo(*cast(_coo(gmg.matrices[0])),
+                                self.levels[0].block * D)
         inv0 = torch.from_numpy(inv0)
         self._coarse_ops = {dev: (e0.device(dev, dtype), inv0.to(dev))
                             for dev in ctx.unique_devices}

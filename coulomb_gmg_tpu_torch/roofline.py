@@ -50,10 +50,12 @@ def tile_density(args, kw, out: torch.Tensor) -> dict:
             "terms": members}
 
 
-def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
-             x: torch.Tensor) -> dict:
-    """One FMA, a column and a value per nonzero slot of the (K, n) layout;
-    x read, y written."""
+def ell_spmv(cols, vals: torch.Tensor, x: torch.Tensor) -> dict:
+    """One FMA, a column and a value per nonzero slot, in either layout
+    (ops/ell.py; the same work for both); x read, y written."""
+    from coulomb_gmg_tpu_torch.ops.ell import Slices
+    if isinstance(cols, Slices):
+        cols = cols.cols
     nnz = int((vals != 0).sum())
     return {**bound(2 * nnz, nnz * (cols.element_size() + vals.element_size())
                     + nbytes(x, x)), "terms": nnz}

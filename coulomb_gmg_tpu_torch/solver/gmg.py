@@ -17,8 +17,10 @@ the same thing:
   or the assembled system as one ELL pair (host-assembled path,
   solver/tpu_gmg.py);
 * ``levels``: per level ``A`` / ``if`` / ``ifT`` / ``P`` / ``R`` as
-  (cols int32, vals) ELL pairs in (K, n_pad) layout (``if``, ``ifT``, ``P``
-  and ``R`` may be None), ``inv_diag``, ``theta`` and ``delta`` (floats),
+  ``(cols, vals)`` ELL pairs of n_pad rows, padded (K, n_pad) when built on
+  the device, sliced when built from a CSR (ops/ell.py; ``if``, ``ifT``,
+  ``P`` and ``R`` may be None), ``inv_diag``, ``theta`` and ``delta``
+  (floats),
   ``l2g`` and ``cmask`` (the gather-form copy maps);
 * ``src_lvl`` / ``src_idx`` (n_pad,) int32: the gather-form copy back;
 * ``dst``: (S, lam, interior, inv_map, int_mask, bnd_mask) and ``dim``; or

@@ -5,8 +5,9 @@ solve of ``preconditioner="Jacobi"`` in float32 runs, one jit there,
 ``_cheby_cg_coo``): lambda_max of D^{-1} A by 12 power-iteration steps on
 the device, a degree-4 Chebyshev preconditioner on [lmax / 30, lmax]
 (ops/smoothers.py:chebyshev), and the CG of solver/cg.py on the system's
-transposed ELL.  ``fused=True`` (the driver's ``solve_fused``) runs it as
-:class:`SteppedChebyCG`, on the card CUDA graphs (solver/fused.py);
+sliced ELL (ops/ell.py:SlicedELL).  ``fused=True`` (the driver's
+``solve_fused``) runs it as :class:`SteppedChebyCG`, on the card CUDA
+graphs (solver/fused.py);
 ``fused=False`` the eager loop of solver/cg.py.  The TPU module's pow2
 buckets of rows, K and nonzeros kept one compiled executable across
 adaptive cycles; they have no counterpart (one dead row remains, for the
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu_torch.ops.ell import ELL, ell_mv
+from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 from coulomb_gmg_tpu_torch.ops.smoothers import chebyshev
 from coulomb_gmg_tpu_torch.solver.cg import CGResult, cg, to_host
 from coulomb_gmg_tpu_torch.solver.fused import Segments
@@ -150,8 +151,9 @@ def tpu_cg_solve(rowids, cols, data, rhs, x0=None, *, diag=None,
     diag_full[diag_full == 0] = 1.0
     inv_diag = (1.0 / diag_full).astype(np_dtype)
     tol = rtol * float(np.linalg.norm(b))
-    e = ELL.from_coo(np.asarray(rowids), np.asarray(cols),
-                     np.asarray(data, np_dtype), n, n, pad_rows_to=n_pad)
+    e = SlicedELL.from_coo(np.asarray(rowids), np.asarray(cols),
+                           np.asarray(data, np_dtype), n, n,
+                           pad_rows_to=n_pad)
     ecols, evals = e.device(dev)
     to_dev = lambda a: torch.from_numpy(a).to(dev)
     if fused:

@@ -6,8 +6,9 @@ prolongations and copy maps of ``solver.multigrid.build_gmg`` (a
 ``GMGPreconditioner``) and the assembled system ``CSR`` are laid out as the
 operator set of solver/gmg.py, and the V-cycle and outer CG run there:
 
-* every operator as a transposed (K, n + 1) ELL through the ELL kernel:
-  ``A``, ``if``, ``ifT``, ``P``, ``R`` = P^T per level, and the system;
+* every operator as a sliced ELL of n + 1 rows (ops/spmv.py:CSR.ell)
+  through the ELL kernel: ``A``, ``if``, ``ifT``, ``P``, ``R`` = P^T per
+  level, and the system;
 * Chebyshev(4)-over-Jacobi smoothing on [lmax / 8, lmax] of D^{-1} A, lmax
   from a host power iteration (15 steps, seeded);
 * the coarse solve: the exact DST solve when the caller enables it (level

@@ -108,10 +108,10 @@ def _load():
             lib.cgmg_gather_rows_bytes.restype = None
             lib.cgmg_gather_rows_bytes.argtypes = [
                 u8p, i64p, ctypes.c_int64, ctypes.c_int64, u8p]
-            lib.cgmg_csr_to_ell.restype = None
-            lib.cgmg_csr_to_ell.argtypes = [
+            lib.cgmg_csr_to_sliced.restype = None
+            lib.cgmg_csr_to_sliced.argtypes = [
                 i64p, i64p, u8p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64, i32p, u8p]
+                ctypes.c_int64, i64p, i32p, u8p]
             lib.cgmg_cross_gather.restype = None
             lib.cgmg_cross_gather.argtypes = [
                 i64p, ctypes.c_int64, i64p, i64p, f64p, i64p,
@@ -254,23 +254,24 @@ def gather_blocks(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
     return out
 
 
-def csr_to_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
-               n_pad: int, K: int):
-    """(ecols (n_pad, K) int32, evals (n_pad, K) data.dtype), zero-padded.
-    None if the native engine is unavailable (caller falls back)."""
+def csr_to_sliced(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
+                  c: int, off: np.ndarray):
+    """(scols int32, svals data.dtype), flat, zero-padded, of the sliced
+    ELL whose slice offsets are ``off`` (ops/ell.py:SlicedELL).  None if
+    the native engine is unavailable (caller falls back)."""
     lib = _load()
     if lib is None:
         return None
     indptr = np.ascontiguousarray(indptr, np.int64)
     indices = np.ascontiguousarray(indices, np.int64)
     data = np.ascontiguousarray(data)
-    n_rows = len(indptr) - 1
-    ecols = np.zeros((n_pad, K), np.int32)
-    evals = np.zeros((n_pad, K), data.dtype)
-    lib.cgmg_csr_to_ell(indptr, indices, data.view(np.uint8).reshape(-1),
-                        data.dtype.itemsize, n_rows, K, ecols,
-                        evals.view(np.uint8).reshape(-1))
-    return ecols, evals
+    off = np.ascontiguousarray(off, np.int64)
+    scols = np.zeros(int(off[-1]), np.int32)
+    svals = np.zeros(int(off[-1]), data.dtype)
+    lib.cgmg_csr_to_sliced(indptr, indices, data.view(np.uint8).reshape(-1),
+                           data.dtype.itemsize, len(indptr) - 1, c, off,
+                           scols, svals.view(np.uint8))
+    return scols, svals
 
 
 def cross_gather(cell_off: np.ndarray, exp_i: np.ndarray,

@@ -111,9 +111,10 @@ def test_transposed_csr_and_rectangular_products():
     y = np.random.default_rng(7).standard_normal(40)
     assert rel_err(A.matvec(t64(x)).numpy(), S @ x) < 1e-12
     assert rel_err(A.matvec_T(t64(y)).numpy(), S.T @ y) < 1e-12
-    cols, vals = A.ell(n_pad=41)
-    assert cols.shape == vals.shape == (int(np.diff(S.indptr).max()), 41)
-    assert not vals[:, 40].any()
+    sl, vals = A.ell(n_pad=41)
+    cols, pvals = sl.padded(vals)
+    assert cols.shape == pvals.shape == (int(np.diff(S.indptr).max()), 41)
+    assert sl.n_rows == 41 and not pvals[:, 40].any()
 
 
 @pytest.mark.parametrize("form", ["csr", "coo"])

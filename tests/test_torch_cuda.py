@@ -17,7 +17,8 @@ from coulomb_gmg_tpu_torch.utils.logging import Pcout
 from coulomb_gmg_tpu_torch.driver import Simulation
 from coulomb_gmg_tpu_torch.ops import density as dd, ell, gradient as gr
 from coulomb_gmg_tpu_torch.ops import stencil, tile_density as td
-from torch_parity import CUT, R_C, adaptive_forest, tile_setup
+from coulomb_gmg_tpu_torch.ops.ell import ELL, SlicedELL
+from torch_parity import CUT, R_C, adaptive_forest, random_csr, tile_setup
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -173,6 +174,104 @@ def test_ell_kernel_matches_plain_at_k_and_n(card, dtype, tol, K, n):
     yp = ell.ell_mv_plain(cols, vals, x)
     scale = (vals.abs() * x[cols].abs()).sum(0)
     assert bool(((yk - yp).abs() <= tol * scale).all())
+
+
+def system_like_8k(seed: int = 0):
+    """A random CSR with the row lengths of the 8,000-atom float64 system
+    (614,973 rows: most of 27 entries, some of 1 and 18, ~1.2% of 28 to
+    51)."""
+    n = 614973
+    rng = np.random.default_rng(seed)
+    counts = rng.choice([27, 1, 18], n, p=[0.855, 0.07, 0.075])
+    long = rng.random(n) < 0.012
+    counts[long] = rng.integers(28, 52, int(long.sum()))
+    counts[n // 2] = 51
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    indices = rng.integers(0, n, indptr[-1])
+    return indptr, indices, rng.standard_normal(indptr[-1])
+
+
+SLICED_CASES = [(1, 0), (7, 0), (8, 0), (9, 13), (31, 0), (32, 0), (33, 13),
+                (3000, 13), ("8k", 0)]
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-13)])
+@pytest.mark.parametrize("n, pad", SLICED_CASES)
+def test_sliced_ell_kernel_is_the_padded_kernel(card, dtype, tol, n, pad):
+    """The sliced kernel (in blocks of 64 threads on the small cases, of
+    256 on the 8k-sized one) gives the padded kernel's values on the padded
+    form of the same operator, and the plain version's to tol times the
+    row's absolute sum."""
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    indptr, indices, data = (system_like_8k() if n == "8k"
+                             else random_csr(n, np_dt, seed=n))
+    n = len(indptr) - 1
+    sl, vals = SlicedELL.from_csr(indptr, indices, data,
+                                  pad_rows_to=n + pad).device(card, dtype)
+    padded = ELL.from_csr(indptr, indices, data,
+                          pad_rows_to=n + pad).device(card, dtype)
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n)).to(
+        card, dtype)
+    before = ell.ell_mv.launches
+    y = ell.ell_mv(sl, vals, x)
+    assert ell.ell_mv.launches == before + 1
+    assert torch.equal(y, ell.ell_mv(*padded, x))
+    yp = ell.ell_mv_plain(sl, vals, x)
+    scale = ell.ell_mv_plain(sl, vals.abs(), x.abs())
+    assert bool(((y - yp).abs() <= tol * scale).all())
+
+
+def test_sliced_ell_product_in_a_cuda_graph(card):
+    """A CUDA graph that captured one sliced product replays it to the
+    eager product's bits, on the inputs it finds at replay."""
+    indptr, indices, data = random_csr(3000, np.float64, seed=7)
+    sl, vals = SlicedELL.from_csr(indptr, indices, data).device(card)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal(3000)).to(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ell.ell_mv(sl, vals, x)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = ell.ell_mv(sl, vals, x)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, ell.ell_mv(sl, vals, x))
+        x.copy_(torch.from_numpy(rng.standard_normal(3000)))
+
+
+@pytest.mark.parametrize("fault, error, match", [
+    ("x dtype", TypeError, "dtypes"),
+    ("vals float16", TypeError, "dtypes"),
+    ("vals on the host", ValueError, "on the card"),
+    ("x on the host", ValueError, "on the card"),
+    ("shape", ValueError, "shapes"),
+    ("strided vals", ValueError, "contiguous"),
+])
+def test_sliced_ell_kernel_raises(card, fault, error, match):
+    indptr, indices, data = random_csr(33, np.float64, seed=5)
+    sl, vals = SlicedELL.from_csr(indptr, indices, data).device(card)
+    x = torch.ones(33, dtype=torch.float64, device=card)
+    if fault == "x dtype":
+        x = x.float()
+    elif fault == "vals float16":
+        vals, x = vals.half(), x.half()
+    elif fault == "vals on the host":
+        vals = vals.cpu()
+    elif fault == "x on the host":
+        x = x.cpu()
+    elif fault == "shape":
+        vals = vals[:-1]
+    elif fault == "strided vals":
+        vals = torch.stack([vals, vals], 1)[:, 0]
+    before = ell.ell_mv.launches
+    with pytest.raises(error, match=match):
+        ell.ell_mv_cuda(sl, vals, x)
+    assert ell.ell_mv.launches == before
 
 
 @pytest.mark.parametrize("refine_seed", [None, 2])

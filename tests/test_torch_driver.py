@@ -177,6 +177,33 @@ def test_example_prm_through_cli_matches_jax(monkeypatch, capsys):
             assert abs(r["energy"][k] / j["energy"][k] - 1) < 1e-5, k
 
 
+def test_cli_no_fused_solve_selects_the_eager_solves(monkeypatch):
+    """``--no-fused-solve`` (the JAX CLI's flag) sets ``solve_fused`` to
+    False: the 8-atom lattice through the port's CLI, 2 cycles, with and
+    without it gives the same cells, CG counts per refinement pass and
+    solution bits (the stepped solve is the eager loop, op for op)."""
+    from coulomb_gmg_tpu_torch import cli
+    runs = []
+    run = Simulation.run
+
+    def record(self):
+        res = run(self)
+        runs.append((self.cfg.solve_fused, res, self.solution))
+        return res
+    monkeypatch.setattr(Simulation, "run", record)
+    launches = _counts()
+    for extra in ([], ["--no-fused-solve"]):
+        assert cli.main(["--production", "1", "--device", "cpu",
+                         "--cycles", "2", *extra]) == 0
+    assert _counts() == launches
+    (fused, res_f, sol_f), (eager, res_e, sol_e) = runs
+    assert fused is True and eager is False
+    assert [r["n_cells"] for r in res_f] == [r["n_cells"] for r in res_e] \
+        == PUBLISHED_CELLS[:2]
+    assert [r["cg_passes"] for r in res_f] == [r["cg_passes"] for r in res_e]
+    assert np.array_equal(sol_f, sol_e)
+
+
 def test_resume_from_jax_checkpoint(tmp_path):
     from coulomb_gmg_tpu import config as jconfig
     from coulomb_gmg_tpu.driver import Simulation as JaxSimulation

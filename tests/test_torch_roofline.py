@@ -80,6 +80,24 @@ def test_ell_bound_and_csr_yardstick():
     assert b["bytes"] == 8 * nnz + 8 * t.n
 
 
+def test_ell_bound_is_the_same_for_both_layouts():
+    """The bound counts the nonzero slots: the padded and the sliced
+    layout of one CSR-built operator do the same work."""
+    import scipy.sparse as sp
+    from coulomb_gmg_tpu_torch.ops.ell import ELL, SlicedELL
+    S = sp.random(300, 300, density=0.05, format="lil",
+                  random_state=np.random.default_rng(9))
+    S[7, :120] = 1.0                 # one long row in a short slice
+    S = S.tocsr()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(300))
+    padded = ELL.from_csr(S.indptr, S.indices, S.data).device("cpu")
+    sliced = SlicedELL.from_csr(S.indptr, S.indices, S.data).device("cpu")
+    assert sliced[0].cols.numel() < padded[0].numel()
+    bp, bs = roofline.ell_spmv(*padded, x), roofline.ell_spmv(*sliced, x)
+    assert bp == bs and bs["terms"] == S.nnz
+    assert bs["bytes"] == 12 * S.nnz + 16 * 300
+
+
 @pytest.mark.parametrize("r_c", [R_C, 0.05])
 def test_dense_density_counts_the_pairs_whose_exp_is_not_zero(r_c):
     """Pairs past r^2 / r_c^2 ~ 104 add exact zeros and are not counted:

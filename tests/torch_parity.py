@@ -105,3 +105,19 @@ def padded(v: np.ndarray, n_pad: int) -> np.ndarray:
     out = np.zeros(n_pad)
     out[: len(v)] = v
     return out
+
+
+def random_csr(n: int, dtype, seed: int):
+    """(indptr, indices, data) of a seeded n x n CSR: short rows (0 to 5
+    entries), every length 0 to 51 where n allows, one row of 51 in an
+    otherwise short slice, random columns, nonzero values."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 6, n)
+    if n > 60:
+        counts[8:60] = np.arange(52)
+    counts[n // 2] = 51
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    indices = rng.integers(0, n, indptr[-1])
+    data = rng.standard_normal(indptr[-1]).astype(dtype)
+    data[data == 0] = 1
+    return indptr, indices, data
