@@ -129,12 +129,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    and count, ``k + 2`` reads each, ELL launches eager plus warm-ups.
    Between the two, ``ShardedGMG``'s gathered float64 level 0 (K = 27) is
    timed sliced, padded and through ``torch.mv``, with the spread gate of
-   phase 6's operators.
+   phase 6's operators;
+14. bench: the port's headline benchmark, ``python -m
+   coulomb_gmg_tpu_torch.bench`` with ``BENCH_N=10`` (8,000 atoms) and
+   ``BENCH_RUNS=1``, configuration ``gpu``, in a process of its own.  It
+   must exit 0 with a valid headline (no ``_INVALID``) on this card
+   (``torch.cuda.get_device_name(0)``), the published cells and tile and
+   ELL launches; it prints the headline.
 
 Each phase prints its seconds.  The line before the last is the kernels'
-JSON record (launches summed over phases 4 to 13, phase 11's from both
-workers, the graph solves' warm-ups included); the last line is
-``{"ok": true, "device": {...}}``.
+JSON record (launches summed over phases 4 to 14, phase 11's from both
+workers and phase 14's from the bench's timed run, the graph solves'
+warm-ups included); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import base64
@@ -1201,6 +1207,44 @@ def phase_multihost():
     return dict.fromkeys(KERNELS, 0) | {"ell_spmv": ell}
 
 
+BENCH_TIMEOUT = 300        # the 8k bench: warm-up and one run, ~30 s
+
+
+def phase_bench():
+    import torch
+    from coulomb_gmg_tpu_torch.bench import REF_CELLS, RUN_TAG
+    from coulomb_gmg_tpu_torch.parallel.multihost import env_with_root
+    # the bench's own budget ends first and kills its worker
+    env = env_with_root(BENCH_N=str(ATOMS_N), BENCH_RUNS="1",
+                        BENCH_BUDGET_S=str(BENCH_TIMEOUT - 60))
+    env.pop("BENCH_FE", None)
+    p = subprocess.run([sys.executable, "-m", "coulomb_gmg_tpu_torch.bench",
+                        "--config", "gpu"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0:
+        raise AssertionError(f"bench exited {p.returncode}:\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    print(f"[bench] {lines[-1]}", flush=True)
+    runs = [json.loads(ln[len(RUN_TAG):]) for ln in lines
+            if ln.startswith(RUN_TAG)]
+    if "_INVALID" in line["metric"] or len(runs) != 1:
+        raise AssertionError(f"bench: invalid headline {line}")
+    if line["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench: device {line['device']!r}")
+    rec = runs[0]
+    print(f"[bench] cells {rec['cells']} CG {rec['cg']} launches "
+          f"{rec['launches']} peak {rec['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    if rec["cells"] != REF_CELLS[8 * ATOMS_N ** 3]:
+        raise AssertionError(f"bench: cells {rec['cells']}")
+    for name in ("tile_density", "ell_spmv"):
+        if rec["launches"][name] <= 0:
+            raise AssertionError(f"bench: no {name} launch")
+    return dict.fromkeys(KERNELS, 0) | rec["launches"]
+
+
 def replay_ms(stepped, names, flag):
     """Milliseconds of one replay of each named graph of a stepped solve,
     and of one read of ``flag`` (the solve's or the coarse CG's).  The
@@ -1605,18 +1649,21 @@ def main():
     main10 = timed("output", phase_output)
     main11 = timed("multihost", phase_multihost)
     main12 = timed("fused", phase_fused)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main14 = timed("bench", phase_bench)
     replaces = {"tile_density": "coulomb_gmg_tpu/ops/tile_density.py:179",
                 "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
                 "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45"}
-    # launches: the sum over the main-path runs (phases 4 to 13)
+    # launches: the sum over the main-path runs (phases 4 to 14)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"coulomb_gmg_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name],
          "launches": sum(m[name] for m in (main4, main5, main6, main7,
                                            main8, main9, main10, main11,
-                                           main12, main13)),
+                                           main12, main13, main14)),
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
                      "exact_gradient")]}

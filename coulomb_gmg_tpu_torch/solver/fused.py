@@ -41,6 +41,7 @@ sharded Jacobi-CG (parallel/sharded.py).
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Optional
 
@@ -103,6 +104,20 @@ class Segments:
             setattr(fn, attr, getattr(fn, attr) + n)
 
     def _capture(self) -> None:
+        # No automatic collection during the capture: an earlier solve's
+        # graphs that wait in a reference cycle (a finished Simulation's)
+        # would be reset by the collector in the middle of it, which ends
+        # the capture (cudaErrorStreamCaptureInvalidated, seen on the H100
+        # in the third 216-atom run of one process).
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self._capture_all()
+        finally:
+            if collecting:
+                gc.enable()
+
+    def _capture_all(self) -> None:
         counts = lambda: [getattr(fn, attr) for fn, attr in COUNTERS]
         with torch.cuda.device(self.device):
             side = Segments._side_streams.get(self.device)

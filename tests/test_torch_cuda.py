@@ -496,6 +496,33 @@ def test_graph_solve_is_the_eager_solve(card, route, monkeypatch):
         assert max(len(p) for p in out[True][2]) >= 2
 
 
+def test_capture_runs_without_the_collector(card, monkeypatch):
+    """The graphs are captured with the cyclic collector off
+    (solver/fused.py:Segments._capture): a collection in the middle of a
+    capture could reset an earlier solve's graphs that wait in a reference
+    cycle, which ends the capture (cudaErrorStreamCaptureInvalidated, seen
+    on the H100).  The collector is on again afterwards."""
+    import gc
+    from coulomb_gmg_tpu_torch.solver.fused import Segments
+    seen = []
+    plain = Segments._capture_all
+    monkeypatch.setattr(Segments, "_capture_all",
+                        lambda self: seen.append(gc.isenabled())
+                        or plain(self))
+    cfg = production_scaling_config(1, dtype="float32", n_adaptive_cycles=1)
+    first = Simulation(cfg, atoms=nacl_lattice(1), device=card,
+                       pcout=Pcout(enabled=False))
+    first.run()
+    junk = [first.gmg]
+    junk.append(junk)                   # its graphs wait for the collector
+    del first, junk
+    res = Simulation(cfg, atoms=nacl_lattice(1), device=card,
+                     pcout=Pcout(enabled=False)).run()
+    assert seen == [False, False] and gc.isenabled()
+    assert res[0]["n_cells"] == 85184
+    assert res[0]["residual"] <= 1.01e-8 * res[0]["l2_rhs"]
+
+
 def test_sharded_graph_solve_is_the_eager_solve(card):
     """The 8-atom float64 SPMD run on 4 shards of cuda:0 with solve_fused
     off and on: the same bits and CG counts, the stepped ShardedGMG as
@@ -647,3 +674,33 @@ def test_sharded_solves_across_cards(card):
     assert torch.equal(jac[True][0], jac[False][0])
     assert jac[True][1:] == jac[False][1:]
     assert solver.info["mode"] == mode
+
+
+@pytest.mark.parametrize("config", ["gpu", "gpu_f64"])
+def test_bench_on_card_8_atoms(card, config):
+    """``python -m coulomb_gmg_tpu_torch.bench`` at 8 atoms, one timed
+    run, on the card: a valid ``_gpu`` headline, the published cells and
+    the path's kernels launched."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from coulomb_gmg_tpu_torch import bench
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, BENCH_N="1", BENCH_RUNS="1", PYTHONPATH=root)
+    env.pop("BENCH_FE", None)
+    p = subprocess.run([sys.executable, "-m", "coulomb_gmg_tpu_torch.bench",
+                        "--config", config], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-2000:]
+    lines = p.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    assert line["metric"] == ("walltime_8atom_5cycle_production_gmg_s_"
+                              + config)
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["power_limit_w"] > 0 and line["runs"] == 1
+    rec = json.loads(next(ln for ln in lines
+                          if ln.startswith(bench.RUN_TAG))[len(bench.RUN_TAG):])
+    assert rec["cells"] == bench.REF_CELLS[8]
+    assert all(rec["launches"][k] > 0 for k in bench.PATH_KERNELS[config])
+    assert rec["peak_bytes"] > 0

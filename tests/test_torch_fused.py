@@ -330,3 +330,26 @@ def test_step16_coarse_cg_matches_jax():
     assert tt.ops["dst"] is None
     assert k == k_ref >= 3
     assert rel_err(x.numpy(), x_ref) < 1e-12
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_capture_turns_the_collector_off(fails):
+    """Segments._capture runs the captures with the cyclic collector off
+    (a collection could reset an earlier solve's graphs in the middle of a
+    capture) and turns it on again, also when a capture raises."""
+    import gc
+    from coulomb_gmg_tpu_torch.solver.fused import Segments
+    seen = []
+
+    def capture_all():
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("capture failed")
+    seg = Segments({}, "cpu")
+    seg._capture_all = capture_all
+    if fails:
+        with pytest.raises(RuntimeError, match="capture failed"):
+            seg._capture()
+    else:
+        seg._capture()
+    assert seen == [False] and gc.isenabled()

@@ -15,13 +15,19 @@ once with the JAX driver on the CPU (x64, as tests/conftest.py sets it up;
                            estimator_volume_term=False,
                            device_operators="on")
 
-Tolerances: float64 CG counts equal, ``l2_rhs`` rel 5e-9.  The JAX driver
+Tolerances: float64 CG counts equal, ``l2_rhs`` rel 2e-8.  The JAX driver
 evaluates the density of a ``tpu_cg`` run in float32 in either precision
 (driver.py:346-354), and so does the port; the two float32 evaluations
-differ in their ``exp`` and matmul rounding, which moves ``l2_rhs`` by
-2.4e-9 at most here (measured), above the 1e-9 that two float64 densities
-would meet.  The float64 device-operator path with a float64 right-hand
-side (the analytic RHS, no atoms) is held to a live JAX run at rel 1e-9.
+differ in their ``exp`` and matmul rounding, and torch's vectorised
+float32 ``exp`` rounds differently with the host's instruction set.  The
+port's ``l2_rhs`` measured rel 2.4e-9 from JAX's at most on one host and
+7.9e-9 (cycle 1) on an AVX-512 host, with 1, 2 or 4 threads; 2e-8 is that
+spread with room for a third host.  The test keeps its point: a float64
+density of the same mesh (``device_operators="off"``, the default
+backend) lies 3.5e-8 to 4.3e-8 from JAX's, farther than 2e-8, so the
+float32 density is the one used.  The float64 device-operator path with a
+float64 right-hand side (the analytic RHS, no atoms) is held to a live JAX
+run at rel 1e-9.
 Float32 ``l2_rhs`` rel 2e-5: the port takes the tile kernel, JAX on the
 CPU the float32 mask density.
 """
@@ -44,7 +50,7 @@ torch.set_num_threads(2)
 JAX_ON = {
     "float64": dict(cells=[5832, 5916, 6476], cg=[1, 5, 6],
                     l2_rhs=[2.030404216104, 1.369013312514, 0.7645832397370],
-                    tol=5e-9),
+                    tol=2e-8),
     "float32": dict(cells=[5832, 5916, 6476], cg=[4, 8, 11],
                     l2_rhs=[2.030404329300, 1.369013309479, 0.7645832896233],
                     tol=2e-5),
@@ -80,6 +86,11 @@ def test_device_operators_on_matches_jax(dtype):
         # one CG at cg_rtol per cycle, no refinement
         assert [r["cg_iterations"] for r in res] == ref["cg"]
         assert [r["cg_passes"] for r in res] == [[k] for k in ref["cg"]]
+        # a float64 density of the same mesh is farther from JAX's
+        f64 = _sim(_cfg(dtype=dtype, device_operators="off")).run()
+        assert [r["n_cells"] for r in f64] == ref["cells"]
+        for r, l2 in zip(f64, ref["l2_rhs"]):
+            assert abs(r["l2_rhs"] / l2 - 1) > ref["tol"]
     else:
         # float32 below the CG floor: iterative refinement
         assert all(len(r["cg_passes"]) >= 2 for r in res)
