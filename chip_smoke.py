@@ -96,12 +96,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    one-process 4-shard solves, stepped and eager, must be ``torch.equal``
    to the two-process ones (so must the all-gather imports), which run
    the stepped solves uncaptured (each rank prints the mode and the GMG
-   solve's host reads), the GMG true residual must be
-   <= 1.01e-8 ||b|| and each rank must have launched the ELL kernel.  It
-   prints each rank's wall, solve seconds, CG count, halo and coarse-gather
-   bytes per V-cycle, seconds in collectives and peak memory.  With two or
-   more cards the same run is made with NCCL, one rank per card;
-   otherwise one line says why not;
+   solve's host reads), each rank's eager loops across the two processes
+   must give the stepped solves' bits, counts and reads, the GMG true
+   residual must be <= 1.01e-8 ||b|| and each rank must have launched the
+   ELL kernel.  It prints each rank's wall, solve seconds (stepped and
+   eager), CG count, halo and coarse-gather bytes per V-cycle, seconds in
+   collectives and peak memory.  With two or more cards the same run is
+   made with NCCL, one rank per card, where the stepped solves are CUDA
+   graphs with the collectives captured ("stepped, CUDA graphs: 2
+   processes (nccl)"), held to the same gates and to their eager loops;
+   each rank prints the capture and instantiate seconds, warm-up launches
+   and the ms of one replay of each ``ShardedGMG`` graph.  With one card
+   a line says why the NCCL run was not made;
 12. fused: the 8,000-atom float32 production run once with
    ``solve_fused=False`` (the eager loops, one host read per CG iteration)
    and once with the default ``solve_fused=True`` (solver/fused.py: each
@@ -129,7 +135,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    and count, ``k + 2`` reads each, ELL launches eager plus warm-ups.
    Between the two, ``ShardedGMG``'s gathered float64 level 0 (K = 27) is
    timed sliced, padded and through ``torch.mv``, with the spread gate of
-   phase 6's operators;
+   phase 6's operators.  With two or more cards, then the same system and
+   the Jacobi-CG with one shard on each of ``min(4, device_count)`` cards
+   of this process, eager, then as CUDA graphs (one graph over all the
+   cards a segment, "stepped, CUDA graphs: N shards on N cards"): the
+   same bits, counts and reads both ways and as the one-card graph solve
+   of as many shards, and ELL launches on every card
+   (``kernels.LAUNCHES``); it prints the peer access between the cards,
+   both solves' seconds, the replay ms of the step-head, coarse and
+   step-tail graphs (all cards together), the capture and instantiate
+   seconds.  With one card a line says it was not run;
 14. bench: the port's headline benchmark, ``python -m
    coulomb_gmg_tpu_torch.bench`` with ``BENCH_N=10`` (8,000 atoms) and
    ``BENCH_RUNS=1``, configuration ``gpu``, in a process of its own.  It
@@ -325,9 +340,9 @@ def ell_layouts(tag, op, x, lib=False):
     sliced one the plain version's to rel 1e-12 (float64) or 1e-6, and the
     sliced samples must not all lie above the slowest padded one (beyond
     the padded spread).  ``lib``: also ``torch.mv`` on a CSR copy
-    (cuSPARSE).  Prints one line with the slots and bytes of each layout,
-    the samples' medians and spreads, and the bound; returns the medians
-    (ms) and the bound.  Times are :func:`graph_samples`, device time only:
+    (cuSPARSE) and the plain version.  Prints one line with the slots
+    and bytes of each layout, the samples' medians and spreads, and the
+    bound; returns the medians (ms) and the bound.  Times are :func:`graph_samples`, device time only:
     a small level's kernel is shorter than its wrapper's host time."""
     import torch
     from coulomb_gmg_tpu_torch import roofline
@@ -352,6 +367,7 @@ def ell_layouts(tag, op, x, lib=False):
             raise AssertionError(f"ell {tag}: torch.mv on the CSR copy: max "
                                  f"err {err_lib:.3e}")
         fns["torch.mv"] = lambda: torch.mv(csr, x)
+        fns["plain"] = lambda: ell.ell_mv_plain(sl, vals, x)
     t = graph_samples(fns)
     ms = {k: float(np.median(v)) for k, v in t.items()}
     slower = min(t["sliced"]) > max(t["padded"])
@@ -1130,13 +1146,23 @@ def check_multihost(tag, lines):
     launches of both ranks."""
     a, b = lines
     for r in lines:
-        comm = " ".join(f"{k} {r['comm_s'][k]:.3f} s/{r['comm_calls'][k]}"
-                        for k in sorted(r["comm_s"]))
+        secs = {k: "in graphs" if v is None else f"{v:.3f} s"
+                for k, v in r["comm_s"].items()}
+        comm = " ".join(f"{k} {secs[k]}/{r['comm_calls'][k]}"
+                        for k in sorted(secs))
         peak = ("not measured" if r["peak_gib"] is None
                 else f"{r['peak_gib']:.2f} GiB")
+        replay = ("none" if r["gmg_replay_ms"] is None else ", ".join(
+            f"{n} {v:.4f}" for n, v in r["gmg_replay_ms"].items()))
         print(f"[{tag} rank {r['rank']}] solves: Jacobi {r['jacobi_mode']}"
-              f"; ShardedGMG {r['gmg_mode']}, {r['gmg_reads']} reads",
-              flush=True)
+              f" (capture {r['jacobi_capture_s']:.4f} s, instantiate "
+              f"{r['jacobi_instantiate_s']:.4f} s); ShardedGMG "
+              f"{r['gmg_mode']}, {r['gmg_reads']} reads, capture "
+              f"{r['gmg_capture_s']:.4f} s, instantiate "
+              f"{r['gmg_instantiate_s']:.4f} s, warm-up {r['gmg_warmup']}, "
+              f"replay ms {replay}; eager loops across the processes: "
+              f"solve {r['gmg_eager_solve_s']:.3f} s, the same bits, counts "
+              f"and reads {r['eager_equal']}", flush=True)
         print(f"[{tag} rank {r['rank']}] {r['device']} shards {r['shards']}; "
               f"wall {r['wall_s']:.2f} s (problem {r['problem_s']:.2f} s, "
               f"ShardedGMG build {r['gmg_build_s']:.2f} s, solve "
@@ -1168,9 +1194,19 @@ def check_multihost(tag, lines):
         bad.append("the ranks hold the same half")
     if one != {"jacobi": True, "gmg": True} or other != one:
         bad.append("not equal to the one-process solves")
-    if not all(r["fused"] and r["gmg_mode"].startswith("stepped, uncaptured")
+    mode = ("stepped, CUDA graphs: 2 processes (nccl)"
+            if a["backend"] == "nccl" else
+            "stepped, uncaptured: 2 processes (gloo)")
+    if not all(r["fused"] and r["gmg_mode"] == r["jacobi_mode"] == mode
                for r in lines):
-        bad.append("not the uncaptured stepped solves")
+        bad.append(f"not the stepped solves {mode!r}")
+    if a["backend"] == "nccl" and not all(
+            r["gmg_replay_ms"] and r["gmg_warmup"].get("launches", 0) > 0
+            for r in lines):
+        bad.append("no graph replays or warm-up")
+    if not all(r["eager_equal"] == {"jacobi": True, "gmg": True}
+               for r in lines):
+        bad.append("the stepped solves are not the ranks' eager loops")
     if not all(all(r["gather_equal"].values()) for r in lines):
         bad.append("the all-gather import differs from the halo plan")
     if not all(r["gmg_true_rel_res"] <= 1.01e-8 for r in lines):
@@ -1246,23 +1282,16 @@ def phase_bench():
 
 
 def replay_ms(stepped, names, flag):
-    """Milliseconds of one replay of each named graph of a stepped solve,
-    and of one read of ``flag`` (the solve's or the coarse CG's).  The
-    replays overwrite the solve's state: call it after its result is
-    taken."""
-    import torch
-    seg = stepped.segments
-
-    def per_call(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / n
-    out = {name: per_call(seg.graphs[name].replay, 50) for name in names}
-    out["read"] = per_call(flag.tolist, 200)
+    """Milliseconds of one replay of each named graph of a stepped solve
+    (``Segments.replay_ms``: all its cards together), and of one read of
+    ``flag`` (the solve's or the coarse CG's).  The replays overwrite the
+    solve's state: call it after its result is taken."""
+    out = stepped.segments.replay_ms(names)
+    flag.tolist()
+    t = time.perf_counter()
+    for _ in range(200):
+        flag.tolist()
+    out["read"] = (time.perf_counter() - t) * 1e3 / 200
     return out
 
 
@@ -1405,14 +1434,27 @@ def sharded_gmg_both(sg, rhs, rtol):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        before = card_launches()
         t0 = time.perf_counter()
         x, k, res0, res = sg.solve(rhs, None, rtol=rtol)
         secs = time.perf_counter() - t0
         out[fused] = dict(x=x, k=k, res0=res0, res=res, s=secs,
                           coarse=sg.coarse_iterations[n0:],
                           launches=read_counts(), info=sg.solve_info(),
+                          cards=card_launches(before),
                           peak=torch.cuda.max_memory_allocated() / 2**30)
     return out
+
+
+def card_launches(before=None):
+    """ELL launches by card index (kernels.LAUNCHES), less ``before``."""
+    from coulomb_gmg_tpu_torch import kernels
+    now = {i: n for (what, i), n in kernels.LAUNCHES.items()
+           if what == "ell_spmv"}
+    if before is None:
+        return now
+    return {i: n - before.get(i, 0) for i, n in now.items()
+            if n != before.get(i, 0)}
 
 
 def phase_sharded_fused(sim):
@@ -1515,6 +1557,132 @@ def phase_sharded_fused(sim):
         bad.append("Jacobi: launches")
     if bad:
         raise AssertionError("sharded fused: " + "; ".join(bad))
+    for k in KERNELS:
+        launches[k] += je["launches"][k] + jg["launches"][k]
+    across = sharded_across_cards(sim, g, (m, jg))
+    return {k: launches[k] + across[k] for k in KERNELS}
+
+
+def sharded_across_cards(sim, one, jacobi):
+    """Phase 13 on ``min(4, device_count)`` cards, one shard a card, one
+    process: phase 9's last system by ``ShardedGMG`` and the 64^3 sharded
+    Jacobi-CG, each eager, then captured (one graph over all the cards a
+    segment).  The same bits, counts and host reads both ways, and those
+    of the one-card captured solve of as many shards (``one`` and the
+    Jacobi result in ``jacobi`` are phase 13's, of 4 shards); ELL
+    launches on every card.  With one card it says that it did not
+    run."""
+    import torch
+    from coulomb_gmg_tpu_torch.parallel.multihost import poisson_7pt
+    from coulomb_gmg_tpu_torch.parallel.sharded import (
+        ShardedCSR, make_sharded_solver, put_blocks, shard_vector,
+        sharded_diag)
+    from coulomb_gmg_tpu_torch.parallel.sharded_gmg import ShardedGMG
+    from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[sharded cards] not run: {n_cards} CUDA card visible; a "
+              "shard a card needs two or more", flush=True)
+        return dict.fromkeys(KERNELS, 0)
+    N = min(4, n_cards)
+    cards = [f"cuda:{i}" for i in range(N)]
+    peer = [[torch.cuda.can_device_access_peer(i, j) for j in range(N)
+             if j != i] for i in range(N)]
+    ctx = SpmdContext(N, cards)
+    mode = f"stepped, CUDA graphs: {N} shards on {N} cards"
+    t0 = time.perf_counter()
+    levels = sim.level_gmg()
+    sg = ShardedGMG(levels, sim.A, ctx, dtype=sim.dtype,
+                    maxiter=sim.cfg.cg_max_iters)
+    build_s = time.perf_counter() - t0
+    rhs = np.asarray(sim.rhs)
+    out = sharded_gmg_both(sg, rhs, sim.cfg.cg_rtol)
+    e, g = out[False], out[True]
+    st = sg.stepped
+    costs = replay_ms(st, ("step_head", "coarse", "step_tail"),
+                      st.coarse0.info)
+    pool = pool_text(st.segments)
+    sg.release()
+    if N != 4:        # the one-card solve of as many shards
+        one = sharded_gmg_both(ShardedGMG(
+            levels, sim.A, SpmdContext(N, ["cuda:0"] * N), dtype=sim.dtype,
+            maxiter=sim.cfg.cg_max_iters), rhs, sim.cfg.cg_rtol)[True]
+    for tag, r in (("eager", e), ("graph", g)):
+        print(f"[sharded cards {tag}] {r['info']['mode']}: CG {r['k']}, "
+              f"coarse CG per V-cycle {r['coarse']}; reads "
+              f"{r['info']['reads']}; solve {r['s']:.4f} s; ELL launches "
+              f"by card {r['cards']}; capture "
+              f"{r['info'].get('capture_s', 0.0):.4f} s, instantiate "
+              f"{r['info'].get('instantiate_s', 0.0):.4f} s, warm-up "
+              f"{r['info'].get('warmup', {})}", flush=True)
+    print(f"[sharded cards] {N} cards, peer access {peer}; ShardedGMG "
+          f"build {build_s:.2f} s; solve eager {e['s']:.4f} s, graph "
+          f"{g['s']:.4f} s, one card ({one['info']['mode']}) "
+          f"{one['s']:.4f} s; replay ms (all cards): " + ", ".join(
+              f"{n} {v:.4f}" for n, v in costs.items())
+          + f"; graph pool on cuda:0 {pool}", flush=True)
+    bad = []
+    warm = g["info"]["warmup"].get("launches", 0)
+    if not (np.array_equal(e["x"], g["x"]) and e["k"] == g["k"]
+            and e["res0"] == g["res0"] and e["res"] == g["res"]
+            and e["coarse"] == g["coarse"]
+            and e["info"]["reads"] == g["info"]["reads"]
+            == g["k"] + 1 + sum(kc + 1 for kc in g["coarse"])):
+        bad.append("GMG: the captured solve is not the eager loops")
+    if not (np.array_equal(one["x"], g["x"]) and one["k"] == g["k"]
+            and one["coarse"] == g["coarse"]):
+        bad.append("GMG: not the one-card captured solve")
+    if g["info"]["mode"] != mode:
+        bad.append(f"GMG mode {g['info']['mode']!r}")
+    if not (warm > 0 and g["launches"]["ell_spmv"]
+            == e["launches"]["ell_spmv"] + warm):
+        bad.append("GMG: launches")
+    if not all(r["cards"].get(i, 0) > 0 for r in (e, g) for i in range(N)):
+        bad.append(f"GMG: ELL launches by card {e['cards']} / "
+                   f"{g['cards']}")
+    launches = {k: e["launches"][k] + g["launches"][k] for k in KERNELS}
+
+    m, jac_one = jacobi    # the one-card Jacobi run's size and result
+    rows, cols, vals, n = poisson_7pt(m)
+    A = ShardedCSR.from_coo(rows, cols, vals, n, N)
+    b = put_blocks(shard_vector(np.random.default_rng(7).standard_normal(n),
+                                N), ctx)
+    jac = {}
+    for fused in (False, True):
+        solver = make_sharded_solver(ctx, A, sharded_diag(A, N),
+                                     tol_rtol=1e-10, maxiter=4000,
+                                     fused=fused)
+        torch.cuda.synchronize()
+        reset_counts()
+        before = card_launches()
+        t0 = time.perf_counter()
+        xb, k, res0, res = solver(b, [torch.zeros_like(v) for v in b])
+        for c in cards:
+            torch.cuda.synchronize(c)
+        jac[fused] = dict(x=torch.cat([x.cpu() for x in xb]), k=k, res=res,
+                          s=time.perf_counter() - t0, info=solver.info,
+                          launches=read_counts(),
+                          cards=card_launches(before))
+        r = jac[fused]
+        print(f"[sharded cards jacobi {m}^3 x{N} fused={fused}] "
+              f"{r['info']['mode']}: CG {k}; reads {r['info']['reads']}; "
+              f"solve {r['s']:.4f} s; ELL launches by card {r['cards']}; "
+              f"capture {r['info'].get('capture_s', 0.0):.4f} s",
+              flush=True)
+    je, jg = jac[False], jac[True]
+    if not (torch.equal(je["x"], jg["x"]) and je["k"] == jg["k"]
+            and je["res"] == jg["res"]
+            and je["info"]["reads"] == jg["info"]["reads"] == jg["k"] + 2):
+        bad.append("Jacobi: the captured solve is not the eager loop")
+    if N == 4 and not (torch.equal(jac_one["x"].cpu(), jg["x"])
+                       and jac_one["k"] == jg["k"]):
+        bad.append("Jacobi: not the one-card captured solve")
+    if jg["info"]["mode"] != mode or not all(
+            r["cards"].get(i, 0) > 0 for r in (je, jg) for i in range(N)):
+        bad.append(f"Jacobi: mode {jg['info']['mode']!r}, ELL launches by "
+                   f"card {je['cards']} / {jg['cards']}")
+    if bad:
+        raise AssertionError("sharded cards: " + "; ".join(bad))
     for k in KERNELS:
         launches[k] += je["launches"][k] + jg["launches"][k]
     return launches

@@ -115,9 +115,9 @@ class Config:
     # whole-solve executable) for StencilGMG, TpuGMG, tpu_cg_solve, the
     # Jacobi CG, ShardedGMG and the sharded Jacobi-CG: on the card CUDA
     # graphs, captured once per operator set, the state read once per
-    # step replay (sharded over several cards or processes: the same
-    # steps uncaptured); False runs the eager loops, one read per CG
-    # iteration (a measurement aid)
+    # step replay (the sharded ones on CPU shards, cards without peer
+    # access or gloo ranks: the same steps uncaptured); False runs the
+    # eager loops, one read per CG iteration (a measurement aid)
     solve_fused: bool = True
     # chip-resident operators (solver/device_gmg.py): level matrices built
     # ON DEVICE from compact topology (ops/stencil.py), matrix-free outer

@@ -32,8 +32,10 @@ the JAX driver chooses them (its ``device_ops_active``, ``use_tpu_cg`` and
 
 ``solve_fused`` (the default) runs every solve but the host SSOR route's
 as a stepped solve (solver/fused.py): on the card CUDA graphs, the sharded
-ones across several cards or processes uncaptured.  ``False`` runs the
-eager loops.
+ones too across several cards of one process (one graph over all of them)
+or NCCL ranks, and uncaptured on CPU shards, cards without peer access or
+gloo ranks (``SpmdContext.graph_mode``).  ``False`` runs the eager
+loops.
 
 Float32 densities come from the tile kernel (``density_tiles``) or the
 dense kernel (no locality flag), float64 ones and ``density_tiles=False``
@@ -373,20 +375,7 @@ class Simulation:
         if self.device_ops:
             return                  # StencilGMG was built with the system
         with self._stage("Assemble Multigrid"):
-            # TpuGMG and ShardedGMG build their own (Chebyshev) smoothers
-            # from the levels
-            host_smoother = not self.use_tpu_cg and self.spmd is None
-            self.gmg = build_gmg(
-                self.forest, self.forest.dofs_of(cfg.degree), self.tab_lap,
-                coeff_fn=self.coeff_fn(),
-                smoother=cfg.smoother if host_smoother else "none",
-                smoother_damping=cfg.smoother_damping,
-                smoother_steps=cfg.smoother_steps,
-                coarse_tol=cfg.coarse_tol,
-                coarse_maxiter=cfg.coarse_max_iters, dtype=self.dtype,
-                jacobi_damping=cfg.jacobi_damping,
-                coarse_rtol=cfg.coarse_rtol, cache=self._gmg_cache,
-                device=self.device)
+            self.gmg = self.level_gmg()
             if self.spmd is not None:
                 # the per-shard level operators and halo plans, with
                 # ShardedGMG's own defaults for the coarse CG
@@ -394,6 +383,24 @@ class Simulation:
                                       dtype=self.dtype,
                                       maxiter=cfg.cg_max_iters,
                                       fused=cfg.solve_fused)
+
+    def level_gmg(self):
+        """The level-matrix GMG of the current mesh (solver/multigrid.py),
+        the host smoother only where it smooths: TpuGMG and ShardedGMG
+        build their own (Chebyshev) smoothers from the levels."""
+        cfg = self.cfg
+        host_smoother = not self.use_tpu_cg and self.spmd is None
+        return build_gmg(
+            self.forest, self.forest.dofs_of(cfg.degree), self.tab_lap,
+            coeff_fn=self.coeff_fn(),
+            smoother=cfg.smoother if host_smoother else "none",
+            smoother_damping=cfg.smoother_damping,
+            smoother_steps=cfg.smoother_steps,
+            coarse_tol=cfg.coarse_tol,
+            coarse_maxiter=cfg.coarse_max_iters, dtype=self.dtype,
+            jacobi_damping=cfg.jacobi_damping,
+            coarse_rtol=cfg.coarse_rtol, cache=self._gmg_cache,
+            device=self.device)
 
     # -------------------------------------------------------------- solve
 

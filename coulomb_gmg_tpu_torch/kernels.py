@@ -95,9 +95,18 @@ def check(err: int, what: str) -> None:
 
 def launch(fn, device: torch.device, what: str, *args) -> None:
     """Call the C launcher ``fn(*args, stream)`` with ``device`` current
-    and its current stream, and raise if it failed.  A kernel goes to the
-    current device: without the switch, operands on another card would
-    get this card's default stream (handle 0) and run here, unordered with
-    their own card's work."""
+    and its current stream, and raise if it failed; count it in
+    ``LAUNCHES[(what, card index)]``.  A kernel goes to the current
+    device: without the switch, operands on another card would get this
+    card's default stream (handle 0) and run here, unordered with their
+    own card's work.  Inside a capture the current stream is the card's
+    capturing stream (solver/fused.py:Segments sets one on every card)."""
     with torch.cuda.device(device):
         check(fn(*args, torch.cuda.current_stream(device).cuda_stream), what)
+    key = (what, device.index)
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+
+
+# (kernel name, card index) -> launches on that card, beside each wrapper's
+# own count; solver/fused.py:Segments adds a graph's at every replay
+LAUNCHES: dict = {}

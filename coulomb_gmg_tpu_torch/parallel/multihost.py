@@ -25,9 +25,13 @@ the JAX worker's two solves:
    n_adaptive_cycles=3)``, cycle 2's system).
 
 Both solves run in the stepped form (``--fused``, the default: the
-driver's ``solve_fused``; across processes its segments run uncaptured,
-one call a replay) or as the eager loops (``--no-fused``); the line says
-which (``fused``, and each solver's ``mode``).  Each solve runs with the
+driver's ``solve_fused``; under NCCL its segments are CUDA graphs with the
+collectives captured on the rank's stream, under gloo they run
+uncaptured, one call a replay) or as the eager loops (``--no-fused``);
+the line says which (``fused``, and each solver's ``mode``).  In the
+stepped form each rank then runs the eager loops across the same
+processes and reports whether they gave the same bits, counts and host
+reads (``eager_equal``).  Each solve runs with the
 halo plan and again with ``halo=False`` (every import an all-gather); both
 must give the same bits.  Rank 0 then runs the one-process D-shard solves
 of the same systems, in the same form and in the other, and reports
@@ -36,10 +40,15 @@ prints one JSON line: the JAX worker's keys (``devices``, ``iters``,
 ``rel_res``,
 ``checksum``, ``local_norm``, ``gmg_*``), the ELL kernel's launches in the
 two halo-plan solves, the true residual, the wall, build and solve
-seconds, the bytes that halo imports and coarse gathers sent to the other
-ranks per V-cycle, the seconds inside collectives and the peak device
-memory.  :func:`launch` starts the workers of one run and collects their
-lines; :func:`run_ranks` starts any set of ranks at a free port.
+seconds (the eager GMG solve's too), each solve's mode and host reads,
+the capture and instantiate seconds and warm-up launches of the stepped
+solves, the ms of one replay of each ``ShardedGMG`` graph, the bytes that
+halo imports and coarse gathers sent to the other ranks per V-cycle, the
+seconds inside collectives (null for a kind that a graph replay ran: a
+collective inside a replay cannot be timed on the host) and the peak
+device memory.  :func:`launch` starts the workers of one run and
+collects their lines; :func:`run_ranks` starts any set of ranks at a free
+port.
 """
 
 from __future__ import annotations
@@ -125,19 +134,34 @@ def jacobi(ctx, halo: bool, fused: bool):
     return (*solver(rhs, [torch.zeros_like(v) for v in rhs]), solver.info)
 
 
-def gmg(ctx, sim, halo: bool, fused: bool):
-    """``ShardedGMG`` on ``sim``'s last system; returns (solver, local
-    blocks, iterations, |r0|, |r|, build seconds, solve seconds)."""
+def gmg(ctx, sim, halo: bool, fused: bool, sg=None, replay: bool = False):
+    """``ShardedGMG`` on ``sim``'s last system, a new one or ``sg`` again,
+    in the form ``fused``; returns (solver, local blocks, iterations,
+    |r0|, |r|, coarse iterations per V-cycle, build seconds, solve
+    seconds, and with ``replay`` the ms of one replay of each segment's
+    graph when the solve captured them, else None)."""
     from coulomb_gmg_tpu_torch.parallel.sharded_gmg import ShardedGMG
     t0 = time.perf_counter()
-    sg = ShardedGMG(sim.gmg, sim.A, ctx, dtype=sim.dtype, maxiter=50,
-                    halo=halo, fused=fused)
+    if sg is None:
+        sg = ShardedGMG(sim.gmg, sim.A, ctx, dtype=sim.dtype, maxiter=50,
+                        halo=halo, fused=fused)
+    sg.fused = fused
     _sync(ctx.devices[0])
     t1 = time.perf_counter()
+    n0 = len(sg.coarse_iterations)
     xb, k, res0, res = sg.solve_global(np.asarray(sim.rhs), rtol=1e-8)
     _sync(ctx.devices[0])
+    t2 = time.perf_counter()
+    ms = None
+    if replay and sg.stepped is not None and sg.stepped.segments.graphs:
+        ms = sg.stepped.segments.replay_ms(SEGMENTS)
     sg.release()
-    return sg, xb, k, res0, res, t1 - t0, time.perf_counter() - t1
+    return (sg, xb, k, res0, res, sg.coarse_iterations[n0:], t1 - t0,
+            t2 - t1, ms)
+
+
+# the stepped ShardedGMG's segments, in the order a step runs them
+SEGMENTS = ("start_head", "start_tail", "step_head", "coarse", "step_tail")
 
 
 def checksum(ctx, xb) -> float:
@@ -184,7 +208,10 @@ def run(rank: int, world: int, port: int, device: str, backend: str,
     xb, k, res0, res, info = jacobi(ctx, True, fused)
     launches = ell_mv.launches
     x_jac = full(ctx, xb)
-    out.update(jacobi_mode=info["mode"], iters=int(k),
+    out.update(jacobi_mode=info["mode"], jacobi_reads=info["reads"],
+               jacobi_capture_s=info.get("capture_s"),
+               jacobi_instantiate_s=info.get("instantiate_s"),
+               iters=int(k),
                rel_res=float(res) / float(res0),
                checksum=checksum(ctx, xb),
                local_norm=float(torch.linalg.norm(
@@ -200,10 +227,12 @@ def run(rank: int, world: int, port: int, device: str, backend: str,
     out["n_dofs"] = int(sim.A.n_rows)
     ell_mv.launches = 0
     ctx.stats = CommStats()
-    sg, xg, kg, res0g, resg, t_build, t_solve = gmg(ctx, sim, True, fused)
+    sg, xg, kg, res0g, resg, coarse, t_build, t_solve, replay = gmg(
+        ctx, sim, True, fused, replay=True)
     launches += ell_mv.launches
     stats, ctx.stats = ctx.stats, CommStats()
-    vcycles = len(sg.coarse_iterations)
+    info = sg.solve_info()
+    vcycles = len(coarse)
     x_gmg = full(ctx, xg)
     out.update(
         gmg_iters=int(kg), gmg_rel_res=float(resg) / max(float(res0g),
@@ -213,14 +242,31 @@ def run(rank: int, world: int, port: int, device: str, backend: str,
         gmg_checksum=checksum(ctx, xg),
         gmg_local_norm=float(torch.linalg.norm(
             torch.cat([x.cpu() for x in xg]))),
-        gmg_mode=sg.solve_info()["mode"], gmg_reads=sg.solve_info()["reads"],
+        gmg_mode=info["mode"], gmg_reads=info["reads"],
+        gmg_capture_s=info.get("capture_s"),
+        gmg_instantiate_s=info.get("instantiate_s"),
+        gmg_warmup=info.get("warmup"), gmg_replay_ms=replay,
         gmg_levels=len(sg.levels), gmg_build_s=t_build, gmg_solve_s=t_solve,
-        vcycles=vcycles, coarse_cg=list(sg.coarse_iterations),
+        vcycles=vcycles, coarse_cg=list(coarse),
         halo_bytes_per_vcycle=stats.bytes.get("halo", 0) / max(vcycles, 1),
         coarse_bytes_per_vcycle=stats.bytes.get("coarse", 0)
         / max(vcycles, 1),
         comm_calls=dict(stats.calls), comm_bytes=dict(stats.bytes),
         comm_s=dict(stats.seconds), ell_launches=launches)
+    if fused:
+        # this rank's eager loops across the same processes: the bits,
+        # counts and reads of the stepped solves
+        xe, ke, r0e, re, ie = jacobi(ctx, True, False)
+        ge = gmg(ctx, sim, True, False, sg=sg)
+        ctx.stats = CommStats()
+        out["gmg_eager_solve_s"] = ge[7]
+        out["eager_equal"] = {
+            "jacobi": bool((ke, r0e, re, ie["reads"])
+                           == (k, res0, res, out["jacobi_reads"])
+                           and torch.equal(full(ctx, xe), x_jac)),
+            "gmg": bool(ge[2:6] == (kg, res0g, resg, coarse)
+                        and sg.solve_info()["reads"] == info["reads"]
+                        and torch.equal(full(ctx, ge[1]), x_gmg))}
     xg_g = gmg(ctx, sim, False, fused)[1]
     out["gather_equal"] = {"jacobi": jac_gather_equal,
                            "gmg": torch.equal(full(ctx, xg_g), x_gmg)}
@@ -239,7 +285,7 @@ def run(rank: int, world: int, port: int, device: str, backend: str,
                 "gmg": bool(g1[2] == kg and torch.equal(full(one, g1[1]),
                                                         x_gmg))}
             if form == fused:
-                out["one_process_gmg_solve_s"] = g1[6]
+                out["one_process_gmg_solve_s"] = g1[7]
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                        if dev.type == "cuda" else None)
     out["wall_s"] = time.perf_counter() - t_start

@@ -28,8 +28,8 @@ and scalar all-reduces inside CG (src/step-50.cc:653-657, 831-832):
 
 :func:`make_sharded_solver` is the sharded Jacobi-CG in two forms: the
 eager host loop, and (``fused``, the default) the stepped solve of
-solver/fused.py:SteppedCG, CUDA graphs when every local shard is on one
-card of one process.
+solver/fused.py:SteppedCG, CUDA graphs when every local shard is on a
+card, of one process or of NCCL ranks (``SpmdContext.graph_mode``).
 """
 
 from __future__ import annotations
@@ -255,9 +255,10 @@ def make_sharded_solver(ctx, A: ShardedCSR, diag_block,
     ``solve_fused``): the stepped solve of solver/fused.py:SteppedCG, its
     state on the device, one host read per iteration (and one of
     ``|rhs|`` for the tolerance, as the eager loop), its two segments
-    CUDA graphs when every local shard is on one card of one process
-    (``SpmdContext.graph_mode``), captured for each call and released
-    after it; else the eager host loop, which reads the norms as it goes.
+    CUDA graphs when every local shard is on a card, of one process or of
+    NCCL ranks (``SpmdContext.graph_mode``), captured for each call and
+    released after it; else the eager host loop, which reads the norms as
+    it goes.
     Both give the same bits.
 
     Returns fn(rhs_blocks, x0_blocks) -> (x_blocks, iters, |r0|, |r|);
@@ -316,7 +317,7 @@ def make_sharded_solver(ctx, A: ShardedCSR, diag_block,
         else:
             capture, mode = ctx.graph_mode()
             st = SteppedCG(matvec, precond, dot, norm, list(rhs_b),
-                           capture=capture)
+                           capture=capture, comm=ctx)
             try:
                 out = tuple(st.solve(rhs_b, x0_b,
                                      tol_rtol * to_host(norm(rhs_b)),

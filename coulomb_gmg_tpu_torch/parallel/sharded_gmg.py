@@ -23,9 +23,12 @@ coarse solve; src/step-50.cc:722-731, 938-1017, 962-967):
   Here level 0's defect is gathered and the same CG runs ONCE PER DISTINCT
   PHYSICAL DEVICE on the whole level-0 operator, each shard taking its own
   block of the result: shards that share a device (the one-card runs) do
-  not repeat it.  Across processes each rank gathers the level-0 defect
-  and solves it redundantly, as JAX solves it on every device
-  (coulomb_gmg_tpu/parallel/sharded.py:16-17).
+  not repeat it.  The cards' copies run in lockstep and compute the same
+  bits, so the host reads the stop of the first card's only.  Across
+  processes each rank gathers the level-0 defect and solves it
+  redundantly, as JAX solves it on every device
+  (coulomb_gmg_tpu/parallel/sharded.py:16-17); ``psum`` gives every rank
+  the same bits, and so the same stop.
 
 Across processes (an ``SpmdContext`` with a process group) every rank
 builds the host plans of all D shards from the same operators and keeps
@@ -42,10 +45,15 @@ of the start, and the head and tail of a CG step around the coarse loop.
 The host reads the solve's state before every step and the coarse CG's
 (active, k) before every coarse iteration: ``k + 1 + sum(kc + 1)`` reads
 for k CG steps and k + 1 V-cycles of kc coarse iterations each.  When
-every local shard is on one card of one process the segments are CUDA
-graphs, captured at the first solve and kept until ``release()``;
-across cards or processes they run uncaptured, one call a replay
-(``SpmdContext.graph_mode``; ``solve_info()`` says which).
+every local shard is on a card the segments are CUDA graphs, captured at
+the first solve and kept until ``release()``: on one card, on several
+cards of one process (one graph over all of them a segment) and on NCCL
+ranks (the collectives captured); on CPU shards, cards without peer
+access and gloo ranks they run uncaptured, one call a replay
+(``SpmdContext.graph_mode``; ``solve_info()`` says which).  The coarse
+CG runs once per distinct card, and redundantly on every rank; ``psum``
+gives every copy the same bits, so the host reads the stop of the first
+card's only.
 ``fused=False`` runs the eager loops: host loops that read the same
 scalars as they go, through solver/cg.py:to_host.  Both forms give the
 same bits.  The JAX module's padded all_to_all tables and its pow2
@@ -251,18 +259,16 @@ class ShardedGMG:
     def _coarse_solve(self, d0: list) -> list:
         """Jacobi-preconditioned CG on the gathered level-0 defect to
         ``coarse_rtol`` (relative) or ``coarse_maxiter`` iterations, once
-        per distinct local device; each shard takes its block."""
+        per distinct local device, all of them in lockstep; each shard
+        takes its block."""
         ctx = self.ctx
-        full = ctx.all_gather(d0, "coarse")
-        sol = {}
-        for i, dev in enumerate(ctx.devices):
-            if dev not in sol:
-                (cols, vals), inv = self._coarse_ops[dev]
-                sol[dev], k = _jacobi_cg(cols, vals, inv, full[i],
-                                         self.coarse_rtol,
-                                         self.coarse_maxiter)
+        full = dict(zip(ctx.devices, ctx.all_gather(d0, "coarse")))
+        devs = list(self._coarse_ops)
+        xs, k = _jacobi_cg([(*self._coarse_ops[dev], full[dev])
+                            for dev in devs], self.coarse_rtol,
+                           self.coarse_maxiter)
         self.coarse_iterations.append(k)
-        return self._coarse_blocks(sol)
+        return self._coarse_blocks(dict(zip(devs, xs)))
 
     def _coarse_blocks(self, sol: dict) -> list:
         """Each local shard's block of the coarse solution ``sol[device]``."""
@@ -449,7 +455,7 @@ class _SteppedShardedGMG:
                                   "step_head": self._step_head,
                                   "step_tail": self._step_tail,
                                   "coarse": self._coarse_step},
-                                 dev0, capture)
+                                 dev0, capture, ctx.unique_devices, ctx)
 
     def solve(self, bs: list, x0: list, tol: float):
         self.segments.prepare()
@@ -550,27 +556,34 @@ class _SteppedShardedGMG:
             c.step()
 
 
-def _jacobi_cg(cols, vals, inv_diag, d, rtol: float, maxiter: int):
+def _jacobi_cg(systems: list, rtol: float, maxiter: int):
     """Jacobi-preconditioned CG for ``A x = d`` from zero to ``|r| <=
-    rtol |d|`` or ``maxiter`` iterations (the JAX ``coarse_solve``).
-    Returns (x, iterations)."""
-    x = torch.zeros_like(d)
-    r = d
-    r2 = to_host(torch.dot(r, r))
+    rtol |d|`` or ``maxiter`` iterations (the JAX ``coarse_solve``), on
+    each of ``systems`` (``((cols, vals), inv_diag, d)``, one copy of the
+    same system per card) in lockstep.  The copies compute the same
+    bits, so the host reads the stopping test of the first only, as the
+    stepped solve does.  Returns (x per system, iterations)."""
+    ops = [s[0] for s in systems]
+    inv = [s[1] for s in systems]
+    r = [s[2] for s in systems]
+    x = [torch.zeros_like(d) for d in r]
+    r2 = to_host(torch.dot(r[0], r[0]))
     tol2 = rtol ** 2 * r2
-    z = inv_diag * r
+    z = [m * ri for m, ri in zip(inv, r)]
     p = z
-    rho = torch.dot(r, z)
+    rho = [torch.dot(ri, zi) for ri, zi in zip(r, z)]
     k = 0
     while r2 > tol2 and k < maxiter:
-        q = ell_mv(cols, vals, p)
-        alpha = _safe_div(rho, torch.dot(p, q))
-        x = x + alpha * p
-        r = r - alpha * q
-        z = inv_diag * r
-        rho_new = torch.dot(r, z)
-        p = z + _safe_div(rho_new, rho) * p
+        q = [ell_mv(c, v, pi) for (c, v), pi in zip(ops, p)]
+        alpha = [_safe_div(a, torch.dot(pi, qi))
+                 for a, pi, qi in zip(rho, p, q)]
+        x = [xi + a * pi for xi, a, pi in zip(x, alpha, p)]
+        r = [ri - a * qi for ri, a, qi in zip(r, alpha, q)]
+        z = [m * ri for m, ri in zip(inv, r)]
+        rho_new = [torch.dot(ri, zi) for ri, zi in zip(r, z)]
+        p = [zi + _safe_div(b, a) * pi
+             for zi, b, a, pi in zip(z, rho_new, rho, p)]
         rho = rho_new
-        r2 = to_host(torch.dot(r, r))
+        r2 = to_host(torch.dot(r[0], r[0]))
         k += 1
     return x, k

@@ -18,11 +18,12 @@ process over D shards:
   interface (:meth:`psum`, :meth:`all_gather`, :meth:`exchange`, and
   parallel/sharded.py:halo_import): ``psum`` adds the per-shard partials
   in shard order on the first shard's device and broadcasts the sum, with
-  no atomics, so every sum is the same from run to run.  When every local
-  shard is on one card of one process they are copies and index gathers
-  on that card, with no read from the host and no copy from it (the
-  import index sets are made before any capture), so the stepped sharded
-  solves capture them into CUDA graphs (:meth:`SpmdContext.graph_mode`);
+  no atomics, so every sum is the same from run to run.  In one process
+  they are copies and index gathers on the shards' cards, with no read
+  from the host and no copy from it (the import index sets are made
+  before any capture), peer copies between cards that can read each
+  other's memory, so the stepped sharded solves capture them into CUDA
+  graphs (:meth:`SpmdContext.graph_mode`);
 * across processes (``group``, a ``torch.distributed`` process group of W
   ranks; JAX's multi-process mesh, tests/test_multihost.py): rank r owns
   the D / W shards ``[r D / W, (r + 1) D / W)`` (``shards``), ``devices``
@@ -31,7 +32,9 @@ process over D shards:
   folds them as one process does, so every rank holds the same bits, and
   those of the one-process D-shard run (never ``all_reduce``, whose order
   of additions is the backend's).  Under gloo a CUDA tensor is staged
-  through host memory: the copies are the transport.  Only the solvers
+  through host memory: the copies are the transport.  Under NCCL the
+  collectives run on the card and write receive buffers kept from call
+  to call, so a CUDA graph captures them too.  Only the solvers
   run across processes (parallel/sharded.py, parallel/sharded_gmg.py):
   the pipeline stages below raise there, as the JAX stages fail
   (coulomb_gmg_tpu/parallel/spmd.py:157 fetches arrays that span other
@@ -66,6 +69,14 @@ from coulomb_gmg_tpu_torch.postprocess.energy import (electrostatic_energy,
                                                       point_values)
 
 
+def no_peer_access(cards: list) -> list:
+    """The ordered pairs (a, b) of distinct cards where a cannot read b's
+    memory: a copy between them goes through the host and cannot be
+    captured."""
+    return [(a, b) for a in cards for b in cards
+            if a != b and not torch.cuda.can_device_access_peer(a, b)]
+
+
 @dataclass
 class CommStats:
     """What this rank's collectives moved across processes, by kind
@@ -73,7 +84,9 @@ class CommStats:
     bytes sent to other ranks, and host seconds inside the
     ``torch.distributed`` calls, waits for the other ranks included (under
     NCCL the enqueue only).  The staging copies are left out: a copy from
-    the card to the host also waits for the rank's queued kernels."""
+    the card to the host also waits for the rank's queued kernels.  A
+    kind that a CUDA graph replay ran has seconds None: the host cannot
+    time a collective inside a replay."""
 
     calls: dict = field(default_factory=dict)
     bytes: dict = field(default_factory=dict)
@@ -82,7 +95,16 @@ class CommStats:
     def add(self, kind: str, nbytes: int, seconds: float) -> None:
         self.calls[kind] = self.calls.get(kind, 0) + 1
         self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
-        self.seconds[kind] = self.seconds.get(kind, 0.0) + seconds
+        s = self.seconds.get(kind, 0.0)
+        self.seconds[kind] = None if s is None else s + seconds
+
+    def replayed(self, calls: dict, nbytes: dict) -> None:
+        """The collectives of one graph replay: ``calls`` and ``nbytes``
+        by kind, as the capture counted them."""
+        for kind, n in calls.items():
+            self.calls[kind] = self.calls.get(kind, 0) + n
+            self.bytes[kind] = self.bytes.get(kind, 0) + nbytes.get(kind, 0)
+            self.seconds[kind] = None
 
 
 class SpmdContext:
@@ -119,6 +141,7 @@ class SpmdContext:
         self.unique_devices = list(dict.fromkeys(self.devices))
         self.stats = CommStats()
         self._backend = None
+        self._buffers = {}
 
     def _single_process(self, stage: str) -> None:
         if self.W > 1:
@@ -147,46 +170,80 @@ class SpmdContext:
 
     def graph_mode(self):
         """(capture, mode) of the stepped sharded solves (solver/fused.py),
-        from the topology alone: CUDA graphs when every local shard is on
-        one card of one process, where every collective below is a copy
-        on that card; otherwise the same segments run uncaptured, one call
-        a replay (a graph holds the work of one card, and a process
-        group's collectives are host calls).  ``mode`` says which and
-        why."""
+        from the topology alone, never from a failure (a capture that
+        fails raises):
+
+        * CUDA graphs when every local shard is on a card: one card of one
+          process (every collective a copy on that card); several cards of
+          one process that can all read each other's memory (one graph
+          over all of them, every copy across cards a peer copy between
+          captured events); several processes under NCCL (each rank's
+          collectives captured on its stream);
+        * uncaptured otherwise, one call a replay, ``mode`` saying why:
+          shards on the CPU, or on the CPU and on cards mixed; cards
+          without peer access, where a copy goes through the host; gloo,
+          which stages every message through host memory."""
         devs = self.unique_devices
+        procs = f"{self.W} processes ({self.backend})"
+        if self.W > 1 and self.backend != "nccl":
+            return False, f"stepped, uncaptured: {procs}"
+        if any(d.type != "cuda" for d in devs):
+            if len(devs) == 1:
+                return (False, "stepped, uncaptured: on the "
+                        f"{devs[0].type.upper()}")
+            return False, (f"stepped, uncaptured: {len(devs)} devices, not "
+                           "all of them cards")
+        blocked = no_peer_access(devs)
+        if blocked:
+            return False, (f"stepped, uncaptured: {len(devs)} cards without "
+                           "peer access (" + ", ".join(
+                               f"{a} -> {b}" for a, b in blocked) + ")")
         if self.W > 1:
-            return False, (f"stepped, uncaptured: {self.W} processes "
-                           f"({torch.distributed.get_backend(self.group)})")
-        if len(devs) > 1:
-            kind = ("cards" if all(d.type == "cuda" for d in devs)
-                    else "devices")
-            return False, f"stepped, uncaptured: {len(devs)} {kind}"
-        if devs[0].type != "cuda":
-            return False, f"stepped, uncaptured: on the {devs[0].type.upper()}"
-        return True, f"stepped, CUDA graphs: {self.D} shards on {devs[0]}"
+            return True, f"stepped, CUDA graphs: {procs}"
+        where = devs[0] if len(devs) == 1 else f"{len(devs)} cards"
+        return True, f"stepped, CUDA graphs: {self.D} shards on {where}"
 
     # ---------------------------------------------------------- collectives
+
+    @property
+    def backend(self) -> str:
+        """The process group's backend ("nccl", "gloo"); None in one
+        process."""
+        if self._backend is None and self.group is not None:
+            self._backend = torch.distributed.get_backend(self.group)
+        return self._backend
 
     @property
     def comm_device(self) -> torch.device:
         """Where messages to other ranks are assembled: the host under
         gloo (the staging buffers), this rank's card under NCCL."""
-        if self._backend is None:
-            self._backend = torch.distributed.get_backend(self.group)
-        if self._backend == "nccl":
+        if self.backend == "nccl":
             return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cpu")
 
+    def _buffer(self, shape, dtype, device) -> torch.Tensor:
+        """The receive buffer of a collective, made at the first call of
+        its shape and kept: a captured collective writes the same memory
+        at every replay, and allocates nothing while it is captured (the
+        warm-up before a capture calls every collective once).  A result
+        read from it is used up before the next collective."""
+        key = (tuple(shape), dtype, device)
+        if key not in self._buffers:
+            self._buffers[key] = torch.empty(shape, dtype=dtype,
+                                             device=device)
+        return self._buffers[key]
+
     def _gather_ranks(self, local: torch.Tensor, kind: str) -> list:
-        """Every rank's ``local`` (the same shape on every rank), in rank
-        order, on this rank's first shard's device."""
+        """Every rank's ``local`` (at least 1-D, the same shape on every
+        rank), in rank order, on this rank's first shard's device."""
         buf = local.to(self.comm_device).contiguous()
-        out = [torch.empty_like(buf) for _ in range(self.W)]
+        out = self._buffer((self.W * buf.shape[0], *buf.shape[1:]),
+                           buf.dtype, buf.device)
         t0 = time.perf_counter()
-        torch.distributed.all_gather(out, buf, group=self.group)
+        torch.distributed.all_gather_into_tensor(out, buf, group=self.group)
         self.stats.add(kind, buf.numel() * buf.element_size()
                        * (self.W - 1), time.perf_counter() - t0)
-        return [o.to(self.devices[0]) for o in out]
+        return [o.to(self.devices[0]) for o in out.chunk(self.W)]
 
     def broadcast(self, t: torch.Tensor) -> list:
         """One copy of ``t`` per local shard, on its device (shards that
@@ -223,7 +280,7 @@ class SpmdContext:
         empty."""
         dev = self.comm_device
         buf = torch.cat([s.to(dev) for s in sends])
-        out = torch.empty(sum(recv_sizes), dtype=buf.dtype, device=dev)
+        out = self._buffer((sum(recv_sizes),), buf.dtype, dev)
         t0 = time.perf_counter()
         torch.distributed.all_to_all_single(
             out, buf, output_split_sizes=list(recv_sizes),

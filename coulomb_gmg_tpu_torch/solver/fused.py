@@ -30,9 +30,24 @@ the step; ``start`` is split the same way.
 
 On the CPU the same functions run eagerly, one call standing for each
 replay, so the CPU tests run the code that the card captures.  So do the
-stepped solves whose state spans several cards or processes (the sharded
-solves of parallel/, ``capture=False``): a segment that reads another card
-or calls a collective of a process group is not captured, it is called.
+stepped solves of parallel/ whose topology cannot be captured
+(``capture=False``: shards on the CPU, process groups under gloo, cards
+without peer access; parallel/spmd.py:SpmdContext.graph_mode).
+
+A stepped sharded solve whose shards lie on several cards of one process
+captures each segment as ONE graph over all of them: the capture begins
+on the first card's side stream, every other card's side stream joins it
+by an event wait, and each card's work is captured on its own side
+stream.  A copy from one card to another (``Tensor.to``) is then a peer
+copy between two captured events, as PyTorch orders a copy across cards
+(the receiver's stream ready, the copy on the sender's stream, the
+receiver waiting for it), and the graph's nodes on every card replay in
+that order.  One graph a card was the other form: a graph's event wait
+resolves when it is launched, so a card whose graph waits for a later
+card's record (every ``psum`` does, and every halo import back) would
+read the previous replay's data, unless each segment were cut into a
+graph per exchange.  Across processes under NCCL, the collectives are
+captured on the rank's stream like any other work.
 
 :class:`SteppedCG` is solver/cg.py's CG in the same form, over per-shard
 lists: the one-device Jacobi route of the driver (one shard) and the
@@ -43,10 +58,12 @@ from __future__ import annotations
 
 import gc
 import time
+from contextlib import ExitStack, contextmanager
 from typing import Callable, Optional
 
 import torch
 
+from coulomb_gmg_tpu_torch import kernels
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 from coulomb_gmg_tpu_torch.solver.cg import CGResult, to_host
 from coulomb_gmg_tpu_torch.solver.gmg import (_safe_div, _smooth, sys_mv,
@@ -58,50 +75,100 @@ COUNTERS = ((ell_mv, "launches"), (ell_mv, "launches_f64"))
 
 
 class Segments:
-    """Named segments of a stepped solve.  On the card each is a CUDA graph
-    sharing one memory pool, captured by :meth:`prepare` after a warm-up of
-    every segment on a side stream (which also loads every kernel
-    library); a capture or replay that fails raises.  For CPU
-    tensors, and with ``capture=False``, :meth:`run` calls the function.
+    """Named segments of a stepped solve.  On the card each is a CUDA graph,
+    captured by :meth:`prepare` after a warm-up of every segment on side
+    streams (which also loads every kernel library); a capture or replay
+    that fails raises, and nothing runs the segments uncaptured instead.
+    For CPU tensors, and with ``capture=False``, :meth:`run` calls the
+    function.
 
-    The kernel launch counters (``COUNTERS``) count what the card runs.
-    The warm-up launches kernels, and the wrappers count them as they come
-    (``warmup`` keeps their number).  A capture records kernels and runs
-    none: the counts that the wrappers make during a capture are taken
-    back and kept as the segment's launches, which every replay runs and
-    adds.  A graph solve thus counts the eager loop's launches plus its
-    warm-up's.  The capture skips ``torch.cuda.graph``'s ``empty_cache``,
-    which would drop the allocator's cache once per cycle."""
+    ``device`` is the card that replays the graphs; ``devices`` lists
+    every card the segments' work runs on (the shards' cards, module
+    docstring).  Each card has its side stream; the graphs' memory is one
+    pool on ``device`` (the graphs' own) and a ``torch.cuda.MemPool`` on
+    each other card, into which that card's allocations go while a graph
+    is captured, so no later allocation takes memory that a replay
+    writes.  ``comm``: a ``SpmdContext`` whose collectives the segments
+    call; its ``stats`` count what each replay moves.
+
+    The kernel launch counters (``COUNTERS`` and kernels.LAUNCHES, by
+    card) count what the cards run.  The warm-up launches kernels, and the
+    wrappers count them as they come (``warmup`` keeps their number).  A
+    capture records kernels and runs none: the counts that the wrappers
+    make during a capture are taken back and kept as the segment's
+    launches, which every replay runs and adds; the collectives' calls
+    and bytes likewise.  A graph solve thus counts the eager loop's
+    launches plus its warm-up's.  The capture skips
+    ``torch.cuda.graph``'s ``empty_cache``, which would drop the
+    allocator's cache once per cycle."""
 
     # device -> the side stream of every warm-up and capture on it: each new
     # stream would get its own cuBLAS workspace, kept for the process's life
     _side_streams: dict = {}
 
     def __init__(self, fns: dict, device: torch.device,
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, devices=(), comm=None):
         self.fns = fns
         self.device = torch.device(device)
         self.capture = (self.device.type != "cpu" if capture is None
                         else capture)
+        self.others = [torch.device(d) for d in dict.fromkeys(devices)
+                       if torch.device(d) != self.device]
+        self.comm = comm
         self.graphs = None
+        self.pools = {}           # other card -> its MemPool
         self.launches = {}        # segment -> [(counter, launches a replay)]
+        self.cards = {}           # segment -> {(kernel, card): a replay's}
+        self.moved = {}           # segment -> (calls, bytes) a replay's
         self.warmup = {}          # counter attribute -> warm-up launches
         self.capture_s = 0.0      # capture of every segment
         self.instantiate_s = 0.0  # capture_end: instantiation of the graphs
+        self._fence = False
 
     def prepare(self) -> None:
         """Capture the graphs if there are none yet (on the card); the
         warm-up writes the state, so call this before loading inputs."""
         if self.capture and self.graphs is None:
             self._capture()
+        self._fence = bool(self.others)
 
     def run(self, name: str) -> None:
         if not self.capture:
             self.fns[name]()
             return
+        if self._fence:
+            # the inputs were loaded on the other cards' current streams
+            here = torch.cuda.current_stream(self.device)
+            for d in self.others:
+                here.wait_stream(torch.cuda.current_stream(d))
+            self._fence = False
         self.graphs[name].replay()
         for (fn, attr), n in self.launches[name]:
             setattr(fn, attr, getattr(fn, attr) + n)
+        for key, n in self.cards[name].items():
+            kernels.LAUNCHES[key] = kernels.LAUNCHES.get(key, 0) + n
+        if name in self.moved:
+            self.comm.stats.replayed(*self.moved[name])
+
+    def replay_ms(self, names, reps: int = 50) -> dict:
+        """Milliseconds of one replay of each named graph, over ``reps``
+        replays back to back after one more, every card synchronized (a
+        measurement: the replays overwrite the solve's state, and those of
+        a segment with collectives must be made alike on every rank)."""
+        def sync():
+            for d in [self.device] + self.others:
+                torch.cuda.synchronize(d)
+        out = {}
+        for name in names:
+            g = self.graphs[name]
+            g.replay()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                g.replay()
+            sync()
+            out[name] = (time.perf_counter() - t0) * 1e3 / reps
+        return out
 
     def _capture(self) -> None:
         # No automatic collection during the capture: an earlier solve's
@@ -118,54 +185,122 @@ class Segments:
                 gc.enable()
 
     def _capture_all(self) -> None:
+        cards = [self.device] + self.others
+        sides = {}
+        for d in cards:
+            if d not in Segments._side_streams:
+                Segments._side_streams[d] = torch.cuda.Stream(d)
+            sides[d] = Segments._side_streams[d]
+        # a process group's watchdog thread queries its events during the
+        # capture, which the default (global) mode would forbid
+        mode = ("thread_local" if self.comm is not None and self.comm.W > 1
+                else "global")
         counts = lambda: [getattr(fn, attr) for fn, attr in COUNTERS]
         with torch.cuda.device(self.device):
-            side = Segments._side_streams.get(self.device)
-            if side is None:
-                side = Segments._side_streams[self.device] = \
-                    torch.cuda.Stream()
             before = counts()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
+            for d in cards:
+                sides[d].wait_stream(torch.cuda.current_stream(d))
+            with _streams(sides, self.device):
                 for fn in self.fns.values():
                     fn()
-            torch.cuda.current_stream().wait_stream(side)
+            for d in cards:
+                torch.cuda.current_stream(d).wait_stream(sides[d])
             self.warmup = {attr: n - b for (_, attr), n, b
                            in zip(COUNTERS, counts(), before)}
             pool = torch.cuda.graph_pool_handle()
+            for d in self.others:
+                with torch.cuda.device(d):
+                    self.pools[d] = torch.cuda.MemPool()
             graphs = {}
             for name, fn in self.fns.items():
-                before = counts()
                 g = torch.cuda.CUDAGraph()
                 t0 = time.perf_counter()
-                with torch.cuda.stream(side):
-                    g.capture_begin(pool=pool)
+                with _streams(sides, self.device), ExitStack() as routed:
+                    for d in self.others:
+                        routed.enter_context(
+                            torch.cuda.use_mem_pool(self.pools[d], d))
+                    g.capture_begin(pool=pool, capture_error_mode=mode)
                     try:
-                        fn()
+                        with _taken_back(self.comm) as taken:
+                            for d in self.others:         # fork
+                                sides[d].wait_stream(sides[self.device])
+                            fn()
+                            for d in self.others:         # join
+                                sides[self.device].wait_stream(sides[d])
                     finally:
                         t1 = time.perf_counter()
-                        captured = counts()
-                        for (f, attr), b in zip(COUNTERS, before):
-                            setattr(f, attr, b)
                         g.capture_end()
                 self.capture_s += t1 - t0
                 self.instantiate_s += time.perf_counter() - t1
-                self.launches[name] = [
-                    (c, n - b) for c, n, b in zip(COUNTERS, captured, before)
-                    if n != b]
+                self.launches[name] = taken["launches"]
+                self.cards[name] = taken["cards"]
+                if taken["moved"][0]:
+                    self.moved[name] = taken["moved"]
                 graphs[name] = g
-            torch.cuda.synchronize(self.device)
+            for d in cards:
+                torch.cuda.synchronize(d)
         self.graphs = graphs
 
     def release(self) -> None:
-        """Drop the graphs, whose memory pool goes back to the allocator,
+        """Drop the graphs, whose memory pools go back to the allocator,
         and the segments' functions: their solver refers to this object,
         and without the cycle it is freed (operators and all) as soon as
         its owner drops it."""
         for g in (self.graphs or {}).values():
             g.reset()
         self.graphs = None
+        self.pools = {}
         self.fns = {}
+
+
+@contextmanager
+def _taken_back(comm):
+    """Take back, on leaving the block, what the kernel wrappers (their
+    counters and kernels.LAUNCHES) and ``comm``'s collectives (its
+    ``stats``) counted inside it, into the yielded dict: ``launches``
+    [(counter, n)], ``cards`` {(kernel, card): n} and ``moved`` (calls,
+    bytes) by kind.  A capture runs nothing; each replay adds them."""
+    counts = [getattr(fn, attr) for fn, attr in COUNTERS]
+    cards = dict(kernels.LAUNCHES)
+    stats = comm.stats if comm is not None else None
+    if stats is not None:
+        comm.stats = type(stats)()
+    taken = {}
+    try:
+        yield taken
+    finally:
+        taken["launches"] = [((fn, attr), getattr(fn, attr) - n)
+                             for (fn, attr), n in zip(COUNTERS, counts)
+                             if getattr(fn, attr) != n]
+        for (fn, attr), n in zip(COUNTERS, counts):
+            setattr(fn, attr, n)
+        taken["cards"] = {k: n - cards.get(k, 0)
+                          for k, n in kernels.LAUNCHES.items()
+                          if n != cards.get(k, 0)}
+        kernels.LAUNCHES.clear()
+        kernels.LAUNCHES.update(cards)
+        taken["moved"] = ({}, {})
+        if stats is not None:
+            moved, comm.stats = comm.stats, stats
+            taken["moved"] = (moved.calls, moved.bytes)
+
+
+@contextmanager
+def _streams(sides: dict, first: torch.device):
+    """Make each card's stream in ``sides`` its current stream, ``first``
+    the current device; restore both after."""
+    device = torch.cuda.current_device()
+    prev = [torch.cuda.current_stream(d) for d in sides]
+    try:
+        for d, s in sides.items():
+            if d != first:
+                torch.cuda.set_stream(s)
+        torch.cuda.set_stream(sides[first])
+        yield
+    finally:
+        for s in prev:
+            torch.cuda.set_stream(s)
+        torch.cuda.set_device(device)
 
 
 class CoarseCG:
@@ -381,7 +516,9 @@ class SteppedCG:
 
     ``mv`` and ``precond`` map a per-shard list to a per-shard list;
     ``dot(a, b)`` gives the global ``a . b`` once per shard, on its device;
-    ``norm(a)`` the global ``|a|`` on the first shard's device.
+    ``norm(a)`` the global ``|a|`` on the first shard's device.  On
+    several cards the segments are graphs over all of them; ``comm`` is
+    the ``SpmdContext`` whose collectives they call (:class:`Segments`).
     ``dealii``: the stopping rule of solver/cg.py (iterate if ``res0 >=
     tol``, stop once ``res < tol`` or ``k >= maxiter``); else the while
     loop's (iterate while ``res >= tol`` and ``k < maxiter``).  Host reads
@@ -389,7 +526,7 @@ class SteppedCG:
 
     def __init__(self, mv: Callable, precond: Callable, dot: Callable,
                  norm: Callable, like: list, *, dealii: bool = False,
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, comm=None):
         self.mv, self.precond, self.dot, self.norm = mv, precond, dot, norm
         self.dealii = dealii
         zeros = lambda: [torch.zeros_like(v) for v in like]
@@ -404,7 +541,8 @@ class SteppedCG:
         self.active = scalar(torch.bool)
         self.info = torch.zeros(4, dtype=torch.float64, device=dev)
         self.segments = Segments({"start": self._start, "step": self._step},
-                                 dev, capture)
+                                 dev, capture, [v.device for v in like],
+                                 comm)
 
     def solve(self, rhs: list, x0: list, tol: float,
               maxiter: int) -> CGResult:

@@ -629,11 +629,21 @@ def test_kernels_run_on_their_operands_card(card):
     assert float((g - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
 
 
+def _ell_by_card():
+    from coulomb_gmg_tpu_torch import kernels
+    return {i: n for (what, i), n in kernels.LAUNCHES.items()
+            if what == "ell_spmv"}
+
+
 def test_sharded_solves_across_cards(card):
     """One shard on each of up to four cards, one process: the stepped
-    sharded solves run uncaptured ("stepped, uncaptured: N cards") and
-    give the bits and counts of the eager loops, for ShardedGMG through
-    the 8-atom float64 SPMD run and for the sharded Jacobi-CG."""
+    sharded solves are CUDA graphs over all the cards ("stepped, CUDA
+    graphs: N shards on N cards") and give the bits and counts of the
+    eager loops and of the one-card graph solve of as many shards, for
+    ShardedGMG through the 8-atom float64 SPMD run (the last solve's host
+    reads too: the cards' coarse CGs run in lockstep, the stop read from
+    the first) and for the sharded Jacobi-CG; the ELL kernel runs on every
+    card."""
     from coulomb_gmg_tpu_torch.parallel.multihost import poisson_7pt
     from coulomb_gmg_tpu_torch.parallel.sharded import (
         ShardedCSR, make_sharded_solver, put_blocks, shard_vector,
@@ -643,37 +653,83 @@ def test_sharded_solves_across_cards(card):
     if n_cards < 2:
         pytest.skip("needs two CUDA cards")
     devices = [f"cuda:{i}" for i in range(n_cards)]
-    mode = f"stepped, uncaptured: {n_cards} cards"
+    one_card = ["cuda:0"] * n_cards
+    mode = f"stepped, CUDA graphs: {n_cards} shards on {n_cards} cards"
+    modes = {"eager": "eager: host loops", "cards": mode,
+             "one_card": f"stepped, CUDA graphs: {n_cards} shards on "
+                         "cuda:0"}
+    runs = {"eager": (devices, False), "cards": (devices, True),
+            "one_card": (one_card, True)}
     out = {}
-    for fused in (False, True):
+    for key, (spmd_devices, fused) in runs.items():
         cfg = production_scaling_config(1, dtype="float64",
                                         n_devices=n_cards,
                                         n_adaptive_cycles=2,
                                         solve_fused=fused)
         sim = Simulation(cfg, atoms=nacl_lattice(1), device=card,
-                         pcout=Pcout(enabled=False), spmd_devices=devices)
+                         pcout=Pcout(enabled=False),
+                         spmd_devices=spmd_devices)
+        before = _ell_by_card()
         res = sim.run()
-        out[fused] = (sim.solution, [r["cg_iterations"] for r in res],
-                      [r["coarse_cg"] for r in res])
-        assert sim.gmg.solve_info()["mode"] == (mode if fused
-                                                else "eager: host loops")
-    assert np.array_equal(out[True][0], out[False][0])
-    assert out[True][1:] == out[False][1:]
+        info = sim.gmg.solve_info()
+        out[key] = (sim.solution, [r["cg_iterations"] for r in res],
+                    [r["coarse_cg"] for r in res], info["reads"])
+        assert info["mode"] == modes[key]
+        if key == "cards":
+            after = _ell_by_card()
+            assert all(after.get(i, 0) > before.get(i, 0)
+                       for i in range(n_cards))
+    for key in ("cards", "one_card"):
+        assert np.array_equal(out[key][0], out["eager"][0])
+        assert out[key][1:] == out["eager"][1:]
     rows, cols, vals, n = poisson_7pt(12)
-    ctx = SpmdContext(n_cards, devices)
-    A = ShardedCSR.from_coo(rows, cols, vals, n, n_cards)
-    b = put_blocks(shard_vector(np.random.default_rng(7).standard_normal(n),
-                                n_cards), ctx)
+    bnp = shard_vector(np.random.default_rng(7).standard_normal(n), n_cards)
     jac = {}
-    for fused in (False, True):
+    for key, (spmd_devices, fused) in runs.items():
+        ctx = SpmdContext(n_cards, spmd_devices)
+        A = ShardedCSR.from_coo(rows, cols, vals, n, n_cards)
+        b = put_blocks(bnp, ctx)
         solver = make_sharded_solver(ctx, A, sharded_diag(A, n_cards),
                                      tol_rtol=1e-10, maxiter=2000,
                                      fused=fused)
         xb, k, res0, res = solver(b, [torch.zeros_like(v) for v in b])
-        jac[fused] = (torch.cat([x.cpu() for x in xb]), k, res0, res)
-    assert torch.equal(jac[True][0], jac[False][0])
-    assert jac[True][1:] == jac[False][1:]
-    assert solver.info["mode"] == mode
+        jac[key] = (torch.cat([x.cpu() for x in xb]), k, res0, res,
+                    solver.info["reads"])
+        assert solver.info["mode"] == modes[key].replace("host loops",
+                                                          "host loop")
+    for key in ("cards", "one_card"):
+        assert torch.equal(jac[key][0], jac["eager"][0])
+        assert jac[key][1:] == jac["eager"][1:]
+
+
+def test_sharded_solves_across_nccl_ranks(card):
+    """Two processes, one card each, joined by NCCL
+    (parallel/multihost.py:launch, ``--fused``, the 2-atom problem): the
+    stepped solves are CUDA graphs with the collectives captured on each
+    rank's stream, and give the bits, counts and host reads of the rank's
+    eager loops across the same processes and the bits of rank 0's
+    one-process solves; a replayed collective has no seconds (null)."""
+    from coulomb_gmg_tpu_torch.parallel.multihost import SEGMENTS, launch
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    a, b = lines = launch(["cuda:0", "cuda:1"], "nccl", "small", 600)
+    for r in lines:
+        assert r["gmg_mode"] == r["jacobi_mode"] == (
+            "stepped, CUDA graphs: 2 processes (nccl)")
+        assert r["eager_equal"] == {"jacobi": True, "gmg": True}
+        assert r["gather_equal"] == {"jacobi": True, "gmg": True}
+        assert r["gmg_warmup"]["launches"] > 0 and r["ell_launches"] > 0
+        assert r["gmg_capture_s"] > 0 and r["jacobi_capture_s"] > 0
+        assert list(r["gmg_replay_ms"]) == list(SEGMENTS)
+        assert {"psum", "halo", "coarse"} <= set(r["comm_bytes"])
+        assert all(v is None for v in r["comm_s"].values())
+        assert r["gmg_reads"] == r["gmg_iters"] + 1 + sum(
+            kc + 1 for kc in r["coarse_cg"])
+    assert a["gmg_iters"] == b["gmg_iters"] and a["iters"] == b["iters"]
+    assert a["gmg_checksum"] == b["gmg_checksum"]
+    assert a["checksum"] == b["checksum"]
+    assert a["one_process_equal"] == a["other_form_equal"] == {
+        "jacobi": True, "gmg": True}
 
 
 @pytest.mark.parametrize("config", ["gpu", "gpu_f64"])

@@ -118,6 +118,17 @@ def test_stepped_solves_across_processes(workers, solver):
 
 
 @pytest.mark.parametrize("solver", ["jacobi", "gmg"])
+def test_stepped_solves_are_the_eager_loops_across_processes(workers,
+                                                             solver):
+    """Each rank's stepped solve and its eager loops across the same two
+    processes: the same bits, counts and host reads (``eager_equal``)."""
+    for r in workers:
+        assert r["eager_equal"][solver] is True
+        assert r[f"{solver}_capture_s"] == 0.0
+    assert workers[0]["gmg_replay_ms"] is None     # uncaptured: no graphs
+
+
+@pytest.mark.parametrize("solver", ["jacobi", "gmg"])
 def test_all_gather_import_gives_the_halo_bits(workers, solver):
     for r in workers:
         assert r["gather_equal"][solver] is True

@@ -19,7 +19,11 @@ solution, equal iteration counts, coarse iterations per V-cycle and norms.
   the driver;
 * the stepped ``ShardedGMG`` against JAX's live ``ShardedGMG`` at D = 3 on
   JAX's ``small_sim``: the same CG count, solution and residuals within
-  rel 1e-12.
+  rel 1e-12;
+* ``SpmdContext.graph_mode`` for every topology, on fake device lists and
+  a stand-in process group (no card needed), each with its mode string;
+  a capture that fails raises out of the solve instead of running the
+  segments uncaptured; the collectives' counts of a graph replay.
 """
 
 import numpy as np
@@ -206,15 +210,128 @@ def test_stepped_cg_is_solver_cg(small_sim, maxiter):
 
 
 def test_segments_capture_follows_the_topology():
-    """The stepped sharded solves capture only when every local shard is
-    on one card of one process; the choice is made before the solve."""
+    """The stepped sharded solves capture only where every local shard is
+    on a card (:func:`test_graph_mode_by_topology` has each topology);
+    the choice is made before the solve."""
     assert SpmdContext(2, ["cpu"] * 2).graph_mode() == (
         False, "stepped, uncaptured: on the CPU")
     assert SpmdContext(2, ["cpu", "meta"]).graph_mode() == (
-        False, "stepped, uncaptured: 2 devices")
+        False, "stepped, uncaptured: 2 devices, not all of them cards")
     assert Segments({}, "cpu").capture is False
     assert Segments({}, "cuda:0", capture=False).capture is False
     assert Segments({}, "cuda:0").capture is True
+
+
+class _Group:
+    """A stand-in for a process group: its size, this rank and the
+    backend's name."""
+
+    def __init__(self, size, rank, backend):
+        self._size, self._rank, self.backend = size, rank, backend
+
+    def size(self):
+        return self._size
+
+    def rank(self):
+        return self._rank
+
+
+TOPOLOGIES = {
+    "one_card": (4, ["cuda:0"] * 4, None,
+                 (True, "stepped, CUDA graphs: 4 shards on cuda:0")),
+    "cards": (4, [f"cuda:{i}" for i in range(4)], None,
+              (True, "stepped, CUDA graphs: 4 shards on 4 cards")),
+    "two_shards_a_card": (4, ["cuda:0", "cuda:0", "cuda:1", "cuda:1"], None,
+                          (True, "stepped, CUDA graphs: 4 shards on 2 "
+                           "cards")),
+    "cards_without_peer_access": (
+        3, ["cuda:0", "cuda:5", "cuda:1"], None,
+        (False, "stepped, uncaptured: 3 cards without peer access "
+         "(cuda:0 -> cuda:5, cuda:5 -> cuda:0, cuda:5 -> cuda:1, "
+         "cuda:1 -> cuda:5)")),
+    "cpu": (3, ["cpu"] * 3, None, (False, "stepped, uncaptured: on the CPU")),
+    "cpu_and_cards": (3, ["cpu", "cuda:0", "cuda:1"], None,
+                      (False, "stepped, uncaptured: 3 devices, not all of "
+                       "them cards")),
+    "gloo_cpu": (4, ["cpu"] * 2, ("gloo", 2, 1),
+                 (False, "stepped, uncaptured: 2 processes (gloo)")),
+    "gloo_one_card": (4, ["cuda:0"] * 2, ("gloo", 2, 0),
+                      (False, "stepped, uncaptured: 2 processes (gloo)")),
+    "nccl": (8, ["cuda:2"] * 2, ("nccl", 4, 2),
+             (True, "stepped, CUDA graphs: 4 processes (nccl)")),
+}
+
+
+@pytest.mark.parametrize("topology", list(TOPOLOGIES))
+def test_graph_mode_by_topology(monkeypatch, topology):
+    """``SpmdContext.graph_mode`` on fake device lists (no card needed):
+    captured for D shards on one card, on several cards that can read
+    each other's memory, and on NCCL ranks; uncaptured, with the reason,
+    for CPU shards, CPU and cards mixed, cards without peer access
+    (any pair with cuda:5 here) and gloo."""
+    import coulomb_gmg_tpu_torch.parallel.spmd as spmd
+    D, devices, group, expected = TOPOLOGIES[topology]
+    monkeypatch.setattr(spmd, "resolve", torch.device)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: 5 not in (torch.device(a).index,
+                                               torch.device(b).index))
+    monkeypatch.setattr(torch.distributed, "get_backend",
+                        lambda g: g.backend)
+    g = None if group is None else _Group(group[1], group[2], group[0])
+    ctx = SpmdContext(D, devices, group=g)
+    assert ctx.graph_mode() == expected
+    if g is not None:
+        assert ctx.shards == list(range(group[2] * D // group[1],
+                                        (group[2] + 1) * D // group[1]))
+
+
+def _forced_capture(monkeypatch):
+    """graph_mode says capture on the CPU shards, and every capture
+    fails."""
+    def fail(self):
+        raise RuntimeError("capture failed")
+    monkeypatch.setattr(SpmdContext, "graph_mode",
+                        lambda self: (True, "stepped, CUDA graphs: forced"))
+    monkeypatch.setattr(Segments, "_capture_all", fail)
+
+
+@pytest.mark.parametrize("solver", ["gmg", "jacobi"])
+def test_a_failed_capture_raises(small_sim, monkeypatch, solver):
+    """A capture that fails raises out of the solve; the segments never
+    run uncaptured in its place (no host read, no iteration)."""
+    _forced_capture(monkeypatch)
+    reads = to_host.reads
+    with pytest.raises(RuntimeError, match="capture failed"):
+        if solver == "gmg":
+            sg = ShardedGMG(small_sim.gmg, small_sim.A, ctx(3),
+                            dtype=small_sim.dtype, maxiter=50)
+            sg.solve(np.asarray(small_sim.rhs), rtol=1e-8)
+        else:
+            rows, cols, vals, n = poisson_7pt(6)
+            A = ShardedCSR.from_coo(rows, cols, vals, n, 3)
+            c = ctx(3)
+            b = put_blocks(shard_vector(np.ones(n), 3), c)
+            make_sharded_solver(c, A, sharded_diag(A, 3), tol_rtol=1e-10,
+                                maxiter=100)(b, b)
+    # the Jacobi-CG reads |rhs| for its tolerance before the first segment
+    assert to_host.reads - reads == (0 if solver == "gmg" else 1)
+    if solver == "gmg":
+        assert sg.coarse_iterations == []
+
+
+def test_comm_stats_of_replays():
+    """Collectives run by a graph replay are counted with their bytes, and
+    their kind's seconds become None (not measurable inside a replay);
+    later timed calls leave it None."""
+    from coulomb_gmg_tpu_torch.parallel.spmd import CommStats
+    s = CommStats()
+    s.add("psum", 16, 0.5)
+    s.add("halo", 100, 0.25)
+    s.replayed({"psum": 2}, {"psum": 32})
+    s.add("psum", 16, 0.5)
+    assert s.calls == {"psum": 4, "halo": 1}
+    assert s.bytes == {"psum": 64, "halo": 100}
+    assert s.seconds == {"psum": None, "halo": 0.25}
 
 
 @pytest.mark.parametrize("route", ["spmd_gmg", "spmd_jacobi", "jacobi"])
