@@ -173,6 +173,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+# the timing helpers of the port's kernel benchmark, so the two time alike
+from coulomb_gmg_tpu_torch.bench_kernels import (  # noqa: E402
+    PLAIN_REPS, graph_samples, median_ms)
+
 ATOMS_N = 10                       # 8 * 10^3 = 8,000 atoms
 REF_CELLS = [512000, 512560, 523592, 543024, 576428]   # bench.py:65-72
 REF_CELLS_64K = [1728000, 1728560, 1749672, 1785904, 1849296]
@@ -194,9 +198,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 STEP16_F32 = dict(cells=[4096, 5307, 7526, 10032, 17312],
                   cg=[6, 15, 15, 17, 17], slack=1)
 STEP16_JACOBI = dict(cells=[4096, 5307, 7526], cg=[13, 19, 28], slack=4)
-REPS = 20                          # timed samples of a kernel
-PLAIN_REPS = 3                     # the dense plain versions take seconds
-SAMPLE_MS = 1.0                    # back-to-back launches fill a sample
 KERNELS = ("ell_spmv", "tile_density", "dense_density", "exact_gradient")
 
 
@@ -247,68 +248,6 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
-
-
-def median_ms(fn, reps=REPS) -> float:
-    """Median CUDA-event time of one call of ``fn`` over ``reps`` samples
-    (:func:`time_samples`)."""
-    return float(np.median(time_samples(fn, reps)))
-
-
-def time_samples(fn, reps=REPS) -> list:
-    """CUDA-event times of one call of ``fn``, ``reps`` samples after a
-    warm-up run.  A sample times back-to-back calls, enough to fill about
-    SAMPLE_MS, and divides by their number: the card then runs the calls
-    without waiting for the host to launch each one."""
-    import torch
-
-    def sample(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / n
-    calls = min(100, max(1, int(SAMPLE_MS / sample(1))))
-    return [sample(calls) for _ in range(reps)]
-
-
-def graph_samples(fns: dict, reps=REPS) -> dict:
-    """Device times of one call of each of ``fns`` (name -> callable),
-    ``reps`` samples each: per callable a CUDA graph of back-to-back calls,
-    enough to fill about SAMPLE_MS, captured once; then the graphs are
-    replayed in turns, each replay timed by CUDA events.  No host launch
-    cost enters, which :func:`time_samples` cannot avoid for a kernel
-    shorter than its wrapper's host time (the ELL on a small level), and
-    the turns spread any drift of the card over all of them."""
-    import torch
-    graphs = {}
-    for name, fn in fns.items():
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        calls = min(100, max(1, int(SAMPLE_MS / min(time_samples(fn, 3)))))
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(calls):
-                fn()
-        g.replay()
-        graphs[name] = (g, calls)
-    out = {name: [] for name in fns}
-    for _ in range(reps):
-        for name, (g, calls) in graphs.items():
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            g.replay()
-            b.record()
-            b.synchronize()
-            out[name].append(a.elapsed_time(b) / calls)
-    return out
 
 
 def bound_text(b, ms):
@@ -1281,6 +1220,61 @@ def phase_bench():
     return dict.fromkeys(KERNELS, 0) | rec["launches"]
 
 
+RC_TOL = 1e-11             # card against CPU, each cutoff's L2 error
+
+
+def phase_tools():
+    """The port's studies and profilers on the card, each through its
+    entry point's ``main``: the cutoff study (its L2 column held to a CPU
+    run of the same study), the kernel benchmark at its three sizes (every
+    row must pass), the V-cycle and solves of the 8k system by piece, the
+    FE-error stage at 64,000 atoms over 28 chunks, and the setup pieces of
+    the 1,000-atom run's final mesh.  Returns each tool's seconds."""
+    import torch
+    from coulomb_gmg_tpu_torch import (bench_kernels, profile_enorm,
+                                       profile_pieces, profile_setup,
+                                       rc_sweep)
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.time()
+        out = fn()
+        seconds[name] = round(time.time() - t, 2)
+        return out
+
+    card = timed("rc_sweep", lambda: rc_sweep.main(
+        ["--out", os.path.join(ROOT, "build", "rc_sweep")]))
+    cpu = timed("rc_sweep cpu", lambda: rc_sweep.sweep(
+        20, 2.0, 6.0, 0.25, torch.device("cpu")))
+    if [r["cutoff"] for r in card] != [r["cutoff"] for r in cpu]:
+        raise AssertionError("rc_sweep: the card's cutoffs differ")
+    diff = max(abs(a["L2"] - b["L2"]) for a, b in zip(card, cpu))
+    l2 = [round(r["L2"], 12) for r in card]
+    print(f"[tools] rc_sweep L2 column (card): {l2}; max |card - cpu| "
+          f"{diff:.3e}", flush=True)
+    if not diff <= RC_TOL:
+        raise AssertionError(f"rc_sweep: card and CPU differ by {diff:.3e}")
+    rows = timed("bench_kernels", lambda: bench_kernels.main(
+        ["--json", "--op-rates"]))
+    failed = [r for r in rows if not r.get("pass", True)]
+    if failed or not any("kernel" in r for r in rows):
+        raise AssertionError(f"bench_kernels: failed rows {failed}")
+    prof = timed("profile_pieces", lambda: profile_pieces.main(
+        ["--n", str(ATOMS_N)]))
+    for r in prof["records"]:
+        if "piece" in r:
+            g = "-" if r["graph_ms"] is None else f"{r['graph_ms']:.4f}"
+            print(f"[tools] piece {r['piece']:12s} level {r['level']}: "
+                  f"eager {r['eager_ms']:.4f} ms, graph {g} ms", flush=True)
+    del prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("profile_enorm", lambda: profile_enorm.main(["--chunks", "28"]))
+    timed("profile_setup", lambda: profile_setup.main(["5"]))
+    print(f"[tools] seconds {seconds}", flush=True)
+    return seconds
+
+
 def replay_ms(stepped, names, flag):
     """Milliseconds of one replay of each named graph of a stepped solve
     (``Segments.replay_ms``: all its cards together), and of one read of
@@ -1820,6 +1814,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     main14 = timed("bench", phase_bench)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("tools", phase_tools)
     replaces = {"tile_density": "coulomb_gmg_tpu/ops/tile_density.py:179",
                 "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",

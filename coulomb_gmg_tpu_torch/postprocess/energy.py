@@ -119,11 +119,9 @@ def energy_norm_error_sq(forest: Forest, tables: ElementTables, u,
     """The squared error of :func:`energy_norm_error` summed over the cells
     ``cells`` (default all), a float64 0-dim tensor on ``device``.
 
-    Per chunk of cells: ``grad_h`` from the cell's DoF values, the exact
-    gradient at ``lower + h * pref``, and the weighted squared difference,
-    summed in float64 on the device."""
+    The cells' DoF values, sizes and corners go to the device once, and
+    :func:`enorm_loop` sums over them in chunks of ``chunk`` cells."""
     dev = torch.device(device)
-    dim = forest.dim
     cells = range(forest.n_cells) if cells is None else cells
     grad_fn = exact_gradient if dtype == torch.float32 else \
         exact_gradient_plain
@@ -134,18 +132,31 @@ def energy_norm_error_sq(forest: Forest, tables: ElementTables, u,
     sel = slice(cells.start, cells.stop)
     c2d = put(forest.dofs_of(tables.degree).cell2dof[sel], torch.int64)
     u_d = put(np.asarray(u, np.float64))
-    h = put(forest.cell_h()[sel])
-    lower = put(forest.cell_lower()[sel])
-    dphi = put(tables.dphi)                             # (n_q, nb, dim)
-    pref = put(tables.points)                           # (n_q, dim)
-    w = put(tables.weights, torch.float64)              # (n_q,)
-    atoms = pack_atoms(positions, charges, dev, dtype)
-    n_q = pref.shape[0]
-    acc = torch.zeros((), dtype=torch.float64, device=dev)
-    for s in range(0, len(cells), chunk):
-        e = min(s + chunk, len(cells))
+    return enorm_loop(u_d[c2d], put(forest.cell_h()[sel]),
+                      put(forest.cell_lower()[sel]), put(tables.dphi),
+                      put(tables.points), put(tables.weights, torch.float64),
+                      pack_atoms(positions, charges, dev, dtype), r_c, chunk,
+                      grad_fn)
+
+
+def enorm_loop(ucell: torch.Tensor, h: torch.Tensor, lower: torch.Tensor,
+               dphi: torch.Tensor, pref: torch.Tensor, w: torch.Tensor,
+               atoms: torch.Tensor, r_c: float, chunk: int,
+               grad_fn) -> torch.Tensor:
+    """The device loop of :func:`energy_norm_error_sq` over cells given by
+    their DoF values ``ucell`` (C, nb), sizes ``h`` (C,) and lower corners
+    ``lower`` (C, dim), in chunks of ``chunk`` cells: per chunk ``grad_h``
+    from ``ucell`` and the basis gradients ``dphi`` (n_q, nb, dim), the
+    exact gradient ``grad_fn`` at ``lower + h * pref`` over ``atoms``
+    (ops/density.py:pack_atoms), and the squared difference weighted by
+    ``w`` (n_q,) float64, summed in float64.  Returns the sum, a float64
+    0-dim tensor on the tensors' device."""
+    dim, n_q = lower.shape[1], pref.shape[0]
+    acc = torch.zeros((), dtype=torch.float64, device=h.device)
+    for s in range(0, h.shape[0], chunk):
+        e = min(s + chunk, h.shape[0])
         hh = h[s:e]
-        grad_h = torch.einsum("cb,qbd->cqd", u_d[c2d[s:e]], dphi) \
+        grad_h = torch.einsum("cb,qbd->cqd", ucell[s:e], dphi) \
             / hh[:, None, None]
         pts = lower[s:e, None, :] + hh[:, None, None] * pref
         grad_ex = grad_fn(pts.reshape(-1, dim), atoms, r_c)

@@ -29,7 +29,8 @@ for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 for name in ("driver", "io.vtu", "io.gnuplot", "parallel.sharded",
              "parallel.sharded_gmg", "parallel.spmd", "parallel.multihost",
-             "utils.platform", "solver.fused"):
+             "utils.platform", "solver.fused", "rc_sweep", "bench_kernels",
+             "profile_pieces", "profile_enorm", "profile_setup"):
     assert "coulomb_gmg_tpu_torch." + name in sys.modules, name
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 ref = sorted(m for m in sys.modules if m == "coulomb_gmg_tpu"
