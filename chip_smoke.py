@@ -150,7 +150,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``BENCH_RUNS=1``, configuration ``gpu``, in a process of its own.  It
    must exit 0 with a valid headline (no ``_INVALID``) on this card
    (``torch.cuda.get_device_name(0)``), the published cells and tile and
-   ELL launches; it prints the headline.
+   ELL launches; it prints the headline;
+15. tools: the port's studies and profilers through their ``main``;
+16. topology, run right after phase 4: the cycle's mesh topology (DoF
+   numbering, hanging pairs, level DoFs and cells, level topology, copy
+   maps, covering map, solution transfer, face plans built and updated,
+   Kelly estimate and marking; ``topology.topology_outputs``) on
+   every refinement step of the 8-atom production trajectory (run here on
+   the card) and of phase 4's 8,000-atom trajectory, computed once with
+   the forests on the card and once on the CPU from the same inputs:
+   every array must be on its device, the integer and boolean arrays
+   ``torch.equal`` and the float64 ones (positions, hanging weights,
+   transfer, estimate, threshold) within rel 1e-14 (max |card - CPU| /
+   max |CPU|), and the card's marking must give the flags that refined
+   the run's mesh.  It prints the seconds of both, the largest float
+   difference and how often each step made the host wait on the card
+   (``torch.cuda.set_sync_debug_mode``).  Then the 8,000-atom stage seconds of the
+   parent tree and of this one, each through ``python -m
+   coulomb_gmg_tpu_torch.profile_topology`` in a process of its own (the
+   parent tree is ``$CHIP_SMOKE_PARENT``, else ``git archive HEAD^`` of a
+   git checkout into ``build/parent_tree/<commit>``, else a line says it
+   is not available); this tree's
+   published cells and CG counts are held to phase 4's.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (launches summed over phases 4 to 14, phase 11's from both
@@ -162,6 +183,7 @@ import base64
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -535,6 +557,20 @@ def phase_kernels():
     }
 
 
+def record_cycles(sim):
+    """Keep (forest, solution, flags) of every cycle of ``sim``'s run, as
+    its estimate leaves them (the inputs of the next refinement)."""
+    rec = []
+    orig = sim.estimate_and_mark
+
+    def spy():
+        orig()
+        rec.append((sim.forest, np.array(sim.solution), np.array(sim.flags)))
+
+    sim.estimate_and_mark = spy
+    return rec
+
+
 def phase_main_path():
     import torch
     from coulomb_gmg_tpu_torch.config import production_scaling_config
@@ -545,6 +581,7 @@ def phase_main_path():
     cfg = production_scaling_config(ATOMS_N, dtype="float32")
     sim = Simulation(cfg, atoms=nacl_lattice(ATOMS_N), device="cuda",
                      pcout=Pcout(enabled=False))
+    traj = record_cycles(sim)
     reset_counts()
     t0 = time.time()
     res = sim.run()
@@ -579,7 +616,178 @@ def phase_main_path():
         if launches[name] <= 0:
             raise AssertionError(f"{name}: no launch on the main path")
     ell_levels(sim.gmg.ops["levels"], f"cycle {res[-1]['cycle']}")
-    return launches
+    return launches, traj
+
+
+TOPOLOGY_RTOL = 1e-14      # float64 arrays, card against CPU
+
+
+def topology_both_ways(tag, traj):
+    """The moved topology functions on every refinement step of ``traj``
+    ((forest, solution, flags) per cycle), on the card and on the CPU from
+    the same inputs: integer and boolean arrays ``torch.equal``, float64
+    ones within ``TOPOLOGY_RTOL``, and the card's marking must give the
+    run's flags."""
+    import torch
+    from coulomb_gmg_tpu_torch.topology import topology_outputs
+    card_s = cpu_s = 0.0
+    n = 0
+    worst = 0.0
+    waits = []
+    for (old, u_old, _), (new, u_new, flags) in zip(traj, traj[1:]):
+        t0 = time.time()
+        got = topology_outputs(old.on("cuda"), new.on("cuda"), u_old, u_new)
+        torch.cuda.synchronize()
+        card_s += time.time() - t0
+        waits.append(host_waits(lambda: topology_outputs(
+            old.on("cuda"), new.on("cuda"), u_old, u_new)))
+        t0 = time.time()
+        cpu = topology_outputs(old.on("cpu"), new.on("cpu"), u_old, u_new)
+        cpu_s += time.time() - t0
+        if list(got) != list(cpu):
+            raise AssertionError(f"{tag}: the card's records differ in name")
+        for name, t in got.items():
+            if t.device.type != "cuda" or cpu[name].device.type != "cpu":
+                raise AssertionError(f"{tag}: {name} on {t.device}")
+            ref = cpu[name]
+            if t.dtype != ref.dtype or t.shape != ref.shape:
+                raise AssertionError(f"{tag} cells {new.n_cells}: {name} "
+                                     f"{t.dtype} {tuple(t.shape)} on the "
+                                     f"card, {ref.dtype} {tuple(ref.shape)}")
+            if t.is_floating_point():
+                rel = float((t.cpu() - ref).abs().max()
+                            / ref.abs().max().clamp(min=1e-300)) \
+                    if ref.numel() else 0.0
+                worst = max(worst, rel)
+                ok = rel <= TOPOLOGY_RTOL
+            else:
+                ok = torch.equal(t.cpu(), ref)
+            if not ok:
+                raise AssertionError(f"{tag} cells {new.n_cells}: {name} "
+                                     "card != CPU")
+        if not np.array_equal(got["flags"].cpu().numpy(), flags):
+            raise AssertionError(f"{tag}: the card's marking is not the "
+                                 "run's")
+        n += len(got)
+    print(f"[topology] {tag}: {len(traj) - 1} refinement steps, {n} arrays "
+          f"card == CPU (float64 within rel {worst:.3e}); card "
+          f"{card_s:.2f} s, CPU {cpu_s:.2f} s; host waits a step {waits}",
+          flush=True)
+
+
+def host_waits(fn) -> int:
+    """How many times ``fn`` made the host wait on the card
+    (``torch.cuda.set_sync_debug_mode`` warnings)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+PROFILE_TIMEOUT = 600
+
+
+def profile_tree(tag, root):
+    """``profile_topology`` at 8,000 atoms on the package in ``root``, in a
+    process of its own (this tree's tool on that tree's package)."""
+    tool = os.path.join(ROOT, "coulomb_gmg_tpu_torch", "profile_topology.py")
+    code = ("import runpy, sys; sys.argv = ['profile_topology'] + "
+            f"sys.argv[1:]; runpy.run_path({tool!r}, run_name='__main__')")
+    p = subprocess.run([sys.executable, "-c", code, "--n", str(ATOMS_N)],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=PROFILE_TIMEOUT)
+    if p.returncode != 0:
+        raise AssertionError(f"profile_topology ({tag}) exited "
+                             f"{p.returncode}:\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    rec = json.loads(p.stdout.strip().splitlines()[-1])
+    for c in rec["cycles"]:
+        st = " ".join(f"{k.split(',')[0].replace(' ', '_')}={v['s']:.3f}"
+                      for k, v in c["stages"].items())
+        print(f"[topology] {tag} cycle {c['cycle']}: cells {c['n_cells']} "
+              f"cg {c['cg']} s: {st}", flush=True)
+    print(f"[topology] {tag}: wall {rec['wall_s']:.2f} s; host "
+          f"{rec['host']['cpu']!r}, {rec['host']['cpu_count']} CPUs, "
+          f"{rec['host']['torch_threads']} torch threads", flush=True)
+    return rec
+
+
+def parent_tree():
+    """A directory holding the parent commit's package, or None.
+
+    ``$CHIP_SMOKE_PARENT`` if set; else ``git archive`` of ``HEAD^`` into
+    ``build/parent_tree/<its commit>``, extracted once per parent commit
+    (into a temporary directory renamed when complete, so a failed
+    extraction leaves nothing behind); None without a git checkout that
+    holds the parent (no ``.git``, a shallow clone of depth 1)."""
+    given = os.environ.get("CHIP_SMOKE_PARENT")
+    if given:
+        return given
+    try:
+        rev = subprocess.run(["git", "-C", ROOT, "rev-parse", "--verify",
+                              "-q", "HEAD^"], capture_output=True, text=True,
+                             check=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    top = os.path.join(ROOT, "build", "parent_tree")
+    dest = os.path.join(top, rev)
+    if os.path.isdir(dest):
+        return dest
+    os.makedirs(top, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=".extract-", dir=top)
+    try:
+        arc = subprocess.run(["git", "-C", ROOT, "archive", rev],
+                             capture_output=True, check=True, timeout=120)
+        subprocess.run(["tar", "-x", "-C", tmp], input=arc.stdout,
+                       check=True, timeout=120)
+        os.rename(tmp, dest)
+        return dest
+    except (OSError, subprocess.SubprocessError):
+        return None
+    finally:
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+
+
+def phase_topology(traj8k):
+    """Phase 16 (see the module docstring) on phase 4's cycles ``traj8k``,
+    which it empties."""
+    import torch
+    from coulomb_gmg_tpu_torch.config import production_scaling_config
+    from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice
+    from coulomb_gmg_tpu_torch.utils.logging import Pcout
+    from coulomb_gmg_tpu_torch.driver import Simulation
+
+    sim = Simulation(production_scaling_config(1, dtype="float32"),
+                     atoms=nacl_lattice(1), device="cuda",
+                     pcout=Pcout(enabled=False))
+    traj = record_cycles(sim)
+    sim.run()
+    del sim
+    topology_both_ways("8 atoms", traj)
+    topology_both_ways("8,000 atoms", traj8k)
+    traj8k.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = parent_tree()
+    if parent is None:
+        print("[topology] parent tree: not available (no git checkout "
+              "holding HEAD^ and no CHIP_SMOKE_PARENT)", flush=True)
+    else:
+        print(f"[topology] parent tree: {parent}", flush=True)
+        profile_tree("parent", parent)
+    this = profile_tree("this tree", ROOT)
+    cells = [c["n_cells"] for c in this["cycles"]]
+    cg = [c["cg"] for c in this["cycles"]]
+    if cells != REF_CELLS or cg != EARLIER_CG:
+        raise AssertionError(f"profile_topology: cells {cells}, CG {cg}")
 
 
 def phase_bruteforce_fe():
@@ -1798,7 +2006,8 @@ def main():
 
     timed("build", phase_build)
     timing = timed("kernels", phase_kernels)
-    main4 = timed("main path", phase_main_path)
+    main4, traj8k = timed("main path", phase_main_path)
+    timed("topology", lambda: phase_topology(traj8k))
     main5 = timed("bruteforce fe", phase_bruteforce_fe)
     main6 = timed("host f64", phase_host_f64)
     main7 = timed("routes", phase_routes)

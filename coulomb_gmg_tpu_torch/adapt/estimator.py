@@ -1,105 +1,130 @@
 """Kelly face-jump error estimator and threshold marking, in float64.
 
 Counterpart of coulomb_gmg_tpu/adapt/estimator.py (the reference's
-``estimate_error_and_mark_cells``, src/step-50.cc:1020-1090).  That module
-imports jax at the top, so its numpy code is carried here unchanged: the
-face plan is built once and updated incrementally across refinements, and
-the jump integrals and the optional volume term are float64 numpy.  Marking
-is threshold-sensitive (0.6 * max), which is why it stays in float64.
+``estimate_error_and_mark_cells``, src/step-50.cc:1020-1090), as torch code
+on the forest's device: the face plan is built once and updated
+incrementally across refinements, and the jump integrals and the optional
+volume term are float64.  Every sum runs over its terms in a fixed order
+(a product's terms in index order, a cell's contributions in face order
+through a stable sort, never an atomic), so a run gives the same bits
+every time, and the card agrees with the CPU to the last bits (rel 1e-14;
+``chip_smoke.py`` phase 16).  Marking is threshold-sensitive (0.6 * max),
+which is why it stays in float64.
+
+On a card every selection of a data-dependent size makes the host wait, so
+each selection is one ``torch.nonzero`` over a whole level, axis or face
+group (never per cell, never an early-exit test), and the estimate sums
+every face contribution in one segment reduction.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from functools import cached_property
 
 import numpy as np
+import torch
 
-from coulomb_gmg_tpu_torch.mesh.forest import Forest, KeyIndex, corner_offsets
-from coulomb_gmg_tpu_torch.ops.q1 import face_tables, gauss_rule, _basis_at
+from coulomb_gmg_tpu_torch.mesh.dofs import HostView
+from coulomb_gmg_tpu_torch.mesh.forest import Forest, active_level_index
+from coulomb_gmg_tpu_torch.ops.q1 import face_tables, _basis_at
 
 
 @dataclass
 class FacePlan:
-    """Precomputed interior-face groups for one mesh topology."""
+    """Precomputed interior-face groups for one mesh topology; int64
+    tensors on the forest's device."""
 
     # same-level faces: cells (m,), neighbor (m,), axis (m,)
-    sl_a: np.ndarray
-    sl_b: np.ndarray
-    sl_axis: np.ndarray
+    sl_a: torch.Tensor
+    sl_b: torch.Tensor
+    sl_axis: torch.Tensor
     # coarse-fine faces: fine cell, coarse cell, axis, fine side (0: fine
     # face at low side), subface config id in [0, 2^(dim-1))
-    cf_fine: np.ndarray
-    cf_coarse: np.ndarray
-    cf_axis: np.ndarray
-    cf_side: np.ndarray
-    cf_sub: np.ndarray
+    cf_fine: torch.Tensor
+    cf_coarse: torch.Tensor
+    cf_axis: torch.Tensor
+    cf_side: torch.Tensor
+    cf_sub: torch.Tensor
+
+    @cached_property
+    def host(self) -> HostView:
+        """numpy view for host consumers (the sharded estimator)."""
+        return HostView(self)
 
 
-def build_face_plan(forest: Forest) -> FacePlan:
-    dim = forest.dim
-    lvl = forest.level.astype(np.int64)
-    per_level = {}
-    for l in range(forest.n_levels):
-        sel = np.where(lvl == l)[0]
-        keys = forest.level_cell_key(l, forest.ijk[sel])
-        order = np.argsort(keys)
-        per_level[l] = (KeyIndex(keys), sel[order])
-
-    sl_a, sl_b, sl_axis = [], [], []
-    cf_fine, cf_coarse, cf_axis, cf_side, cf_sub = [], [], [], [], []
-
-    for l in range(forest.n_levels):
-        cells = np.where(lvl == l)[0]
-        if len(cells) == 0:
-            continue
-        ijk = forest.ijk[cells]
-        side_n = forest.side(l)
-        ki, act = per_level[l]
-        for axis in range(dim):
-            # same-level faces, + direction only (each counted once)
-            nb = ijk.copy()
-            nb[:, axis] += 1
-            inside = nb[:, axis] < side_n
-            pos = ki.lookup(forest.level_cell_key(l, nb))
-            hit = inside & (pos >= 0)
-            sl_a.append(cells[hit])
-            sl_b.append(act[pos[hit]])
-            sl_axis.append(np.full(hit.sum(), axis, dtype=np.int64))
-            if l == 0:
-                continue
-            # coarse neighbors across +/- faces
-            kc, actc = per_level[l - 1]
-            for sgn, sidev in ((1, 1), (-1, 0)):
-                nb = ijk.copy()
-                nb[:, axis] += sgn
-                inside = (nb[:, axis] >= 0) & (nb[:, axis] < side_n)
-                parent = nb // 2
-                posc = kc.lookup(forest.level_cell_key(l - 1, parent))
-                # only when the same-level neighbor does NOT exist
-                pos_same = ki.lookup(forest.level_cell_key(l, nb))
-                hit = inside & (pos_same < 0) & (posc >= 0)
-                if not hit.any():
-                    continue
-                sub = np.zeros(hit.sum(), dtype=np.int64)
-                free = [d for d in range(dim) if d != axis]
-                for k, d in enumerate(free):
-                    sub |= (ijk[hit][:, d] & 1) << k
-                cf_fine.append(cells[hit])
-                cf_coarse.append(actc[posc[hit]])
-                cf_axis.append(np.full(hit.sum(), axis, dtype=np.int64))
-                cf_side.append(np.full(hit.sum(), sidev, dtype=np.int64))
-                cf_sub.append(sub)
-
-    cat = lambda xs: (np.concatenate(xs) if xs else np.zeros(0, np.int64))
+def _plan(dev, sl_a, sl_b, sl_axis, cf_fine, cf_coarse, cf_axis, cf_side,
+          cf_sub) -> FacePlan:
+    cat = lambda xs: (torch.cat(xs) if xs
+                      else torch.zeros(0, dtype=torch.int64, device=dev))
     return FacePlan(sl_a=cat(sl_a), sl_b=cat(sl_b), sl_axis=cat(sl_axis),
                     cf_fine=cat(cf_fine), cf_coarse=cat(cf_coarse),
                     cf_axis=cat(cf_axis), cf_side=cat(cf_side),
                     cf_sub=cat(cf_sub))
 
 
+def _subface(ijk: torch.Tensor, free) -> torch.Tensor:
+    sub = torch.zeros(len(ijk), dtype=torch.int64, device=ijk.device)
+    for k, d in enumerate(free):
+        sub |= (ijk[:, d] & 1) << k
+    return sub
+
+
+def build_face_plan(forest: Forest) -> FacePlan:
+    dim = forest.dim
+    lvl = forest.level_t
+    per_level = active_level_index(forest)
+
+    sl_a, sl_b, sl_axis = [], [], []
+    cf_fine, cf_coarse, cf_axis, cf_side, cf_sub = [], [], [], [], []
+
+    for l in range(forest.n_levels):
+        cells = torch.nonzero(lvl == l).reshape(-1)
+        if len(cells) == 0:
+            continue
+        ijk = forest.ijk_t[cells]
+        side_n = forest.side(l)
+        ki, act = per_level[l]
+        for axis in range(dim):
+            # same-level faces, + direction only (each counted once)
+            nb = ijk.clone()
+            nb[:, axis] += 1
+            inside = nb[:, axis] < side_n
+            pos = ki.lookup(forest.level_cell_key(l, nb))
+            at = torch.nonzero(inside & (pos >= 0)).reshape(-1)
+            a = cells[at]
+            sl_a.append(a)
+            sl_b.append(act[pos[at]])
+            sl_axis.append(torch.full_like(a, axis))
+            if l == 0:
+                continue
+            # coarse neighbors across +/- faces
+            kc, actc = per_level[l - 1]
+            for sgn, sidev in ((1, 1), (-1, 0)):
+                nb = ijk.clone()
+                nb[:, axis] += sgn
+                inside = (nb[:, axis] >= 0) & (nb[:, axis] < side_n)
+                parent = nb >> 1
+                posc = kc.lookup(forest.level_cell_key(l - 1, parent))
+                # only when the same-level neighbor does NOT exist
+                pos_same = ki.lookup(forest.level_cell_key(l, nb))
+                at = torch.nonzero(inside & (pos_same < 0)
+                                   & (posc >= 0)).reshape(-1)
+                fine = cells[at]
+                cf_fine.append(fine)
+                cf_coarse.append(actc[posc[at]])
+                cf_axis.append(torch.full_like(fine, axis))
+                cf_side.append(torch.full_like(fine, sidev))
+                cf_sub.append(_subface(ijk[at],
+                                       [d for d in range(dim) if d != axis]))
+
+    return _plan(lvl.device, sl_a, sl_b, sl_axis, cf_fine, cf_coarse,
+                 cf_axis, cf_side, cf_sub)
+
+
 def update_face_plan(old: Forest, new: Forest, old_plan: FacePlan,
-                     omap: np.ndarray) -> FacePlan:
+                     omap: torch.Tensor) -> FacePlan:
     """Incremental FacePlan across one refinement step.
 
     Only faces incident to refined cells change: faces between two
@@ -118,145 +143,111 @@ def update_face_plan(old: Forest, new: Forest, old_plan: FacePlan,
       guarantees those fine subcells are active.
 
     Replaces the full O(n_cells) rebuild per cycle with O(new cells) work
-    (plus per-level key sorts for the levels new cells touch); the
-    reference pays this cost inside KellyErrorEstimator on every cycle
+    (plus per-level key sorts of the new forest); the reference pays this
+    cost inside KellyErrorEstimator on every cycle
     (src/step-50.cc:1020-1090)."""
     dim = new.dim
-    omap = np.asarray(omap)
-    survived_new = new.level == old.level[omap]          # per NEW cell
-    new_of_old = np.full(old.n_cells, -1, dtype=np.int64)
-    surv_idx = np.where(survived_new)[0]
+    dev = omap.device
+    lvl = new.level_t
+    survived_new = lvl == old.level_t[omap]              # per NEW cell
+    new_of_old = torch.full((old.n_cells,), -1, dtype=torch.int64,
+                            device=dev)
+    surv_idx = torch.nonzero(survived_new).reshape(-1)
     new_of_old[omap[surv_idx]] = surv_idx
     old_survived = new_of_old >= 0                       # per OLD cell
 
     # ---- keep remapped faces between surviving cells
-    keep_sl = old_survived[old_plan.sl_a] & old_survived[old_plan.sl_b]
+    keep_sl = torch.nonzero(old_survived[old_plan.sl_a]
+                            & old_survived[old_plan.sl_b]).reshape(-1)
     sl_a = [new_of_old[old_plan.sl_a[keep_sl]]]
     sl_b = [new_of_old[old_plan.sl_b[keep_sl]]]
     sl_axis = [old_plan.sl_axis[keep_sl]]
-    keep_cf = (old_survived[old_plan.cf_fine]
-               & old_survived[old_plan.cf_coarse])
+    keep_cf = torch.nonzero(old_survived[old_plan.cf_fine]
+                            & old_survived[old_plan.cf_coarse]).reshape(-1)
     cf_fine = [new_of_old[old_plan.cf_fine[keep_cf]]]
     cf_coarse = [new_of_old[old_plan.cf_coarse[keep_cf]]]
     cf_axis = [old_plan.cf_axis[keep_cf]]
     cf_side = [old_plan.cf_side[keep_cf]]
     cf_sub = [old_plan.cf_sub[keep_cf]]
 
-    # ---- per-level key indexes of the NEW forest, built lazily
-    lvl = new.level.astype(np.int64)
-    per_level = {}
-
-    def ki_of(l):
-        if l not in per_level:
-            if l < 0 or l >= new.n_levels:
-                per_level[l] = None
-            else:
-                sel = np.where(lvl == l)[0]
-                keys = new.level_cell_key(l, new.ijk[sel])
-                order = np.argsort(keys)
-                per_level[l] = (KeyIndex(keys), sel[order])
-        return per_level[l]
+    per_level = active_level_index(new)
+    ki_of = lambda l: per_level.get(l)
 
     is_new = ~survived_new
-    new_cells = np.where(is_new)[0]
-    for l in np.unique(lvl[new_cells]) if len(new_cells) else []:
-        cells = new_cells[lvl[new_cells] == l]
-        ijk = new.ijk[cells]
+    new_cells = torch.nonzero(is_new).reshape(-1)
+    new_lvl = lvl[new_cells]
+    for l in torch.unique(new_lvl).tolist():
+        cells = new_cells[torch.nonzero(new_lvl == l).reshape(-1)]
+        ijk = new.ijk_t[cells]
         side_n = new.side(l)
-        ki_l = ki_of(l)
+        ki, act = ki_of(l)
         for axis in range(dim):
             free = [d for d in range(dim) if d != axis]
             for sgn in (1, -1):
-                nb = ijk.copy()
+                nb = ijk.clone()
                 nb[:, axis] += sgn
                 inside = (nb[:, axis] >= 0) & (nb[:, axis] < side_n)
-                ki, act = ki_l
                 pos = ki.lookup(new.level_cell_key(l, nb))
-                pos = np.where(inside, pos, -1)
+                pos = torch.where(inside, pos, -1)
                 same = pos >= 0
-                if same.any():
-                    other = act[pos[same]]
-                    o_new = is_new[other]
-                    # new-new: + direction only; new-surviving: always.
-                    # Orientation: sl_a is the cell on the LOW side of the
-                    # face (the full builder scans + direction only).
-                    add = (~o_new) | (sgn == 1)
-                    here = cells[same][add]
-                    there = other[add]
-                    a = here if sgn == 1 else there
-                    b = there if sgn == 1 else here
-                    sl_a.append(a)
-                    sl_b.append(b)
-                    sl_axis.append(np.full(len(a), axis, dtype=np.int64))
+                # new-new: + direction only; new-surviving: always.
+                # Orientation: sl_a is the cell on the LOW side of the face
+                # (the full builder scans + direction only).
+                other = act[pos.clamp(min=0)]
+                at = torch.nonzero(same & (~is_new[other] | (sgn == 1))
+                                   ).reshape(-1)
+                here, there = cells[at], other[at]
+                a = here if sgn == 1 else there
+                b = there if sgn == 1 else here
+                sl_a.append(a)
+                sl_b.append(b)
+                sl_axis.append(torch.full_like(a, axis))
                 # coarse neighbor (fine side = this new cell)
                 rem = inside & ~same
-                if rem.any() and l > 0 and ki_of(l - 1) is not None:
+                if l > 0 and ki_of(l - 1) is not None:
                     kc, actc = ki_of(l - 1)
-                    parent = nb[rem] // 2
-                    posc = kc.lookup(new.level_cell_key(l - 1, parent))
-                    hit = posc >= 0
-                    if hit.any():
-                        fc = cells[rem][hit]
-                        sub = np.zeros(hit.sum(), dtype=np.int64)
-                        fijk = new.ijk[fc]
-                        for k, d in enumerate(free):
-                            sub |= (fijk[:, d] & 1) << k
-                        cf_fine.append(fc)
-                        cf_coarse.append(actc[posc[hit]])
-                        cf_axis.append(np.full(hit.sum(), axis,
-                                               dtype=np.int64))
-                        cf_side.append(np.full(hit.sum(),
-                                               1 if sgn == 1 else 0,
-                                               dtype=np.int64))
-                        cf_sub.append(sub)
-                    rem2 = np.where(rem)[0][~hit]
-                else:
-                    rem2 = np.where(rem)[0]
+                    posc = kc.lookup(new.level_cell_key(l - 1, nb >> 1))
+                    hit = torch.nonzero(rem & (posc >= 0)).reshape(-1)
+                    fc = cells[hit]
+                    cf_fine.append(fc)
+                    cf_coarse.append(actc[posc[hit]])
+                    cf_axis.append(torch.full_like(fc, axis))
+                    cf_side.append(torch.full_like(fc, 1 if sgn == 1
+                                                   else 0))
+                    cf_sub.append(_subface(new.ijk_t[fc], free))
+                    rem = rem & (posc < 0)
                 # finer neighbors (coarse side = this new cell); add only
                 # SURVIVING fine subcells — new fine cells add the face
                 # from their own scan
-                if len(rem2) and ki_of(l + 1) is not None:
-                    kf, actf = ki_of(l + 1)
-                    nbr = nb[rem2]
-                    base = nbr * 2
-                    # subcells on the face adjacent to this cell: axis
-                    # coordinate pinned to the NEAR side of the neighbor
-                    base[:, axis] = (2 * nbr[:, axis]
-                                     + (0 if sgn == 1 else 1))
-                    for subcfg in range(2 ** (dim - 1)):
-                        sub_ijk = base.copy()
-                        for k, d in enumerate(free):
-                            sub_ijk[:, d] += (subcfg >> k) & 1
-                        posf = kf.lookup(new.level_cell_key(l + 1, sub_ijk))
-                        hitf = posf >= 0
-                        if not hitf.any():
-                            continue
-                        f = actf[posf[hitf]]
-                        sels = ~is_new[f]
-                        if not sels.any():
-                            continue
-                        f = f[sels]
-                        cc = cells[rem2][hitf][sels]
-                        fijk = new.ijk[f]
-                        sub = np.zeros(len(f), dtype=np.int64)
-                        for k, d in enumerate(free):
-                            sub |= (fijk[:, d] & 1) << k
-                        cf_fine.append(f)
-                        cf_coarse.append(cc)
-                        cf_axis.append(np.full(len(f), axis,
-                                               dtype=np.int64))
-                        # the fine cell sees its coarse neighbor in the
-                        # -sgn direction
-                        cf_side.append(np.full(len(f),
-                                               1 if sgn == -1 else 0,
-                                               dtype=np.int64))
-                        cf_sub.append(sub)
+                if ki_of(l + 1) is None or len(ki_of(l + 1)[1]) == 0:
+                    continue
+                kf, actf = ki_of(l + 1)
+                base = nb * 2
+                # subcells on the face adjacent to this cell: axis
+                # coordinate pinned to the NEAR side of the neighbor
+                base[:, axis] = 2 * nb[:, axis] + (0 if sgn == 1 else 1)
+                subs = []
+                for subcfg in range(2 ** (dim - 1)):
+                    sub_ijk = base.clone()
+                    for k, d in enumerate(free):
+                        sub_ijk[:, d] += (subcfg >> k) & 1
+                    subs.append(sub_ijk)
+                posf = kf.lookup(new.level_cell_key(l + 1, torch.stack(subs)))
+                fine = actf[posf.clamp(min=0)]
+                # (subface config, cell) pairs in the order of the configs
+                sc, i = torch.nonzero(rem & (posf >= 0) & ~is_new[fine],
+                                      as_tuple=True)
+                f = fine[sc, i]
+                cf_fine.append(f)
+                cf_coarse.append(cells[i])
+                cf_axis.append(torch.full_like(f, axis))
+                # the fine cell sees its coarse neighbor in the -sgn
+                # direction
+                cf_side.append(torch.full_like(f, 1 if sgn == -1 else 0))
+                cf_sub.append(_subface(new.ijk_t[f], free))
 
-    cat = lambda xs: (np.concatenate(xs) if xs else np.zeros(0, np.int64))
-    return FacePlan(sl_a=cat(sl_a), sl_b=cat(sl_b), sl_axis=cat(sl_axis),
-                    cf_fine=cat(cf_fine), cf_coarse=cat(cf_coarse),
-                    cf_axis=cat(cf_axis), cf_side=cat(cf_side),
-                    cf_sub=cat(cf_sub))
+    return _plan(dev, sl_a, sl_b, sl_axis, cf_fine, cf_coarse, cf_axis,
+                 cf_side, cf_sub)
 
 
 def _face_grad_tables(dim: int, degree: int, n_q1: int):
@@ -286,93 +277,144 @@ def _face_grad_tables(dim: int, degree: int, n_q1: int):
     return grads, weights, sub_grads
 
 
-def estimate(forest: Forest, cell2dof: np.ndarray, u, rho_q,
+def _products(x: torch.Tensor, G) -> torch.Tensor:
+    """``x @ G.T`` for x (m, k) and a numpy table G (r, k), each output
+    summing its k terms in index order (no reduction of unspecified
+    order)."""
+    G = torch.from_numpy(np.ascontiguousarray(G, np.float64)).to(x.device)
+    acc = x[:, None, 0] * G[None, :, 0]
+    for j in range(1, G.shape[1]):
+        acc = acc + x[:, None, j] * G[None, :, j]
+    return acc
+
+
+def _power(x: torch.Tensor, k: int) -> torch.Tensor:
+    out = x
+    for _ in range(k - 1):
+        out = out * x
+    return out
+
+
+def _bincount(idx: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
+    """``np.bincount(idx, weights=w, minlength=n)`` in gather form: each
+    bin sums its weights in the order they come.  A stable sort gives each
+    weight its occurrence rank in its bin; a table (bin, rank) holds them,
+    and its columns are added in rank order.  No atomics; one host wait
+    (the largest rank)."""
+    out = torch.zeros(n, dtype=w.dtype, device=w.device)
+    if len(idx) == 0:
+        return out
+    si, order = torch.sort(idx, stable=True)
+    # occurrence rank: position minus the first position of its value
+    rank = torch.arange(len(si), device=si.device) - torch.searchsorted(si,
+                                                                         si)
+    table = torch.zeros((n, int(rank.max()) + 1), dtype=w.dtype,
+                        device=w.device)
+    table[si, rank] = w[order]
+    for r in range(table.shape[1]):
+        out = out + table[:, r]
+    return out
+
+
+def _groups(key: torch.Tensor, n: int):
+    """Faces sorted by a group id in [0, n), each group in plan order:
+    (order, the n + 1 group bounds as ints); one host wait."""
+    ks, order = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(ks, torch.arange(n + 1, device=key.device))
+    return order, bounds.tolist()
+
+
+def estimate(forest: Forest, cell2dof, u, rho_q,
              rhs_points_ref: np.ndarray, rhs_weights: np.ndarray,
              degree: int = 1, use_volume_term: bool = True,
-             plan: FacePlan = None) -> np.ndarray:
-    """Per-cell error indicator (numpy float64, length n_cells).
+             plan: FacePlan = None) -> torch.Tensor:
+    """Per-cell error indicator (float64, length n_cells) on the forest's
+    device; ``u`` and ``rho_q`` may be numpy or tensors.
 
     ``plan``: a prebuilt/incrementally-updated FacePlan for this forest
     (adapt/estimator.py:update_face_plan); None rebuilds from scratch."""
     dim = forest.dim
+    dev = forest.device
     n_q1 = degree + 1
     if plan is None:
         plan = build_face_plan(forest)
     grads, fweights, sub_grads = _face_grad_tables(dim, degree, n_q1)
 
-    # host numpy throughout: per-cycle shapes are fresh every adaptive
-    # cycle, so eager XLA would recompile each primitive per cycle.
-    u = np.asarray(u, np.float64)
-    ucell = u[cell2dof]                            # (n_cells, nb)
-    h = forest.cell_h()
-    diam = h * np.sqrt(dim)
+    f64 = lambda a: (a if isinstance(a, torch.Tensor)
+                     else torch.from_numpy(np.asarray(a))).to(
+                         dev, torch.float64)
+    c2d = (cell2dof if isinstance(cell2dof, torch.Tensor)
+           else torch.from_numpy(np.asarray(cell2dof))).to(dev)
+    ucell = f64(u)[c2d]                            # (n_cells, nb)
+    h = forest.h0 / (torch.ones_like(forest.level_t)
+                     << forest.level_t).to(torch.float64)
+    diam = h * math.sqrt(dim)
     n_cells = forest.n_cells
-    eta2 = np.zeros(n_cells)
+    cells, contrib = [], []
 
-    # ---- same-level faces
-    if len(plan.sl_a):
-        for axis in range(dim):
-            sel = plan.sl_axis == axis
-            if not sel.any():
-                continue
-            a, b = plan.sl_a[sel], plan.sl_b[sel]
-            f_hi, f_lo = 2 * axis + 1, 2 * axis
-            Ga = np.asarray(grads[f_hi][:, :, axis])  # (n_fq, nb)
-            Gb = np.asarray(grads[f_lo][:, :, axis])
-            w = np.asarray(fweights[f_hi])
-            ha = h[a]
-            # normal gradients (reference grad / h); same h both sides
-            ga = (ucell[a] @ Ga.T) / ha[:, None]
-            gb = (ucell[b] @ Gb.T) / ha[:, None]
-            jump2 = ((ga - gb) ** 2) @ w
-            Jf = jump2 * ha ** (dim - 1)           # face integral
-            eta2 += np.bincount(a, weights=diam[a] * Jf, minlength=n_cells)
-            eta2 += np.bincount(b, weights=diam[b] * Jf, minlength=n_cells)
+    def face_term(c1, c2, G1, G2, w, h1, h2):
+        """diam-weighted face integral of the normal-gradient jump, added
+        to both cells (reference grad / h)."""
+        g1 = _products(ucell[c1], G1) / h1[:, None]
+        g2 = _products(ucell[c2], G2) / h2[:, None]
+        d = g1 - g2
+        Jf = _products(d * d, np.asarray(w)[None, :])[:, 0] * _power(
+            h1, dim - 1)
+        cells.extend((c1, c2))
+        contrib.extend((diam[c1] * Jf, diam[c2] * Jf))
 
-    # ---- coarse-fine faces (integrate per fine subface)
-    if len(plan.cf_fine):
-        for axis in range(dim):
-            for sidev in (0, 1):
-                for sub in range(2 ** (dim - 1)):
-                    sel = ((plan.cf_axis == axis) & (plan.cf_side == sidev)
-                           & (plan.cf_sub == sub))
-                    if not sel.any():
-                        continue
-                    fc = plan.cf_fine[sel]
-                    cc = plan.cf_coarse[sel]
-                    f = 2 * axis + sidev
-                    Gf = np.asarray(grads[f][:, :, axis])
-                    Gc = np.asarray(sub_grads[(f, sub)][:, :, axis])
-                    w = np.asarray(fweights[f])
-                    hf = h[fc]
-                    hc = h[cc]
-                    gf = (ucell[fc] @ Gf.T) / hf[:, None]
-                    gc = (ucell[cc] @ Gc.T) / hc[:, None]
-                    jump2 = ((gf - gc) ** 2) @ w
-                    Jf = jump2 * hf ** (dim - 1)
-                    eta2 += np.bincount(fc, weights=diam[fc] * Jf,
-                                        minlength=n_cells)
-                    eta2 += np.bincount(cc, weights=diam[cc] * Jf,
-                                        minlength=n_cells)
+    # ---- same-level faces (same h both sides), by axis
+    order, bounds = _groups(plan.sl_axis, dim)
+    for axis in range(dim):
+        at = order[bounds[axis]:bounds[axis + 1]]
+        if len(at) == 0:
+            continue
+        a, b = plan.sl_a[at], plan.sl_b[at]
+        f_hi, f_lo = 2 * axis + 1, 2 * axis
+        face_term(a, b, grads[f_hi][:, :, axis], grads[f_lo][:, :, axis],
+                  fweights[f_hi], h[a], h[a])
+
+    # ---- coarse-fine faces (integrate per fine subface), by (axis, fine
+    # side, subface)
+    n_sub = 2 ** (dim - 1)
+    order, bounds = _groups((plan.cf_axis * 2 + plan.cf_side) * n_sub
+                            + plan.cf_sub, 2 * dim * n_sub)
+    for g in range(2 * dim * n_sub):
+        at = order[bounds[g]:bounds[g + 1]]
+        if len(at) == 0:
+            continue
+        f, sub = divmod(g, n_sub)          # f = 2 * axis + side
+        fc, cc = plan.cf_fine[at], plan.cf_coarse[at]
+        face_term(fc, cc, grads[f][:, :, f // 2],
+                  sub_grads[(f, sub)][:, :, f // 2], fweights[f],
+                  h[fc], h[cc])
+
+    # Each cell's contributions in the order above: a cell meets each face
+    # group at most once on each side, so these are numpy's per-group
+    # bincounts added in turn, bit for bit.
+    eta2 = (_bincount(torch.cat(cells), torch.cat(contrib), n_cells)
+            if cells else torch.zeros(n_cells, dtype=torch.float64,
+                                      device=dev))
 
     est2 = eta2
     if use_volume_term and rho_q is not None:
         # volume residual: (lap u_h + 4 pi rho~)^2; lap u_h == 0 for Q1 on
         # axis-aligned boxes, nonzero for higher degree
-        temp = 4.0 * np.pi * np.asarray(rho_q, np.float64)
+        temp = (4.0 * np.pi) * f64(rho_q)
         if degree > 1:
             from coulomb_gmg_tpu_torch.ops.q1 import lap_basis_at
             lap = lap_basis_at(dim, degree, np.asarray(rhs_points_ref))
-            temp = temp + (ucell @ lap.T) / (h ** 2)[:, None]
-        vol = (temp ** 2) @ np.asarray(rhs_weights)
-        vol = vol * h ** dim
-        est2 = est2 + diam ** 2 * vol
+            temp = temp + _products(ucell, lap) / (h * h)[:, None]
+        vol = _products(temp * temp, np.asarray(rhs_weights)[None, :])[:, 0]
+        vol = vol * _power(h, dim)
+        est2 = est2 + (diam * diam) * vol
 
-    return np.sqrt(est2)
+    return torch.sqrt(est2)
 
 
-def mark_cells(error: np.ndarray, fraction_of_max: float = 0.6):
+def mark_cells(error: torch.Tensor, fraction_of_max: float = 0.6):
     """Threshold marking (``GridRefinement::refine`` with 0.6*max,
-    src/step-50.cc:1084-1089).  Returns (flags, threshold)."""
-    threshold = fraction_of_max * float(np.max(np.abs(error)))
+    src/step-50.cc:1084-1089).  Returns (flags on the error's device,
+    threshold)."""
+    threshold = fraction_of_max * float(error.abs().max())
     return error > threshold, threshold

@@ -18,36 +18,35 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
-from coulomb_gmg_tpu_torch.mesh.forest import Forest, KeyIndex, corner_offsets
+from coulomb_gmg_tpu_torch.mesh.forest import (
+    Forest, KeyIndex, active_level_index, corner_offsets, node_offsets,
+    to_host)
 from coulomb_gmg_tpu_torch.ops.q1 import _basis_at
 
 
-def old_cell_of_new(old: Forest, new: Forest) -> np.ndarray:
+def old_cell_of_new(old: Forest, new: Forest) -> torch.Tensor:
     """For each new active cell: index of the old active cell covering it
-    (itself, or its parent if it was just created by refinement)."""
-    per_level = {}
-    lvl = old.level.astype(np.int64)
-    for l in range(old.n_levels):
-        sel = np.where(lvl == l)[0]
-        ki, order = KeyIndex.with_order(old.level_cell_key(l, old.ijk[sel]))
-        per_level[l] = (ki, sel[order])
-
-    out = np.full(new.n_cells, -1, dtype=np.int64)
-    nlvl = new.level.astype(np.int64)
+    (itself, or its parent if it was just created by refinement); int64 on
+    ``new.device``."""
+    per_level = active_level_index(old)
+    out = torch.full((new.n_cells,), -1, dtype=torch.int64,
+                     device=new.device)
+    nlvl, nijk = new.level_t, new.ijk_t
     for l in range(new.n_levels):
-        sel = np.where(nlvl == l)[0]
+        sel = torch.nonzero(nlvl == l).reshape(-1)
         if len(sel) == 0:
             continue
         if l in per_level:
             ki, act = per_level[l]
-            pos = ki.lookup(new.level_cell_key(l, new.ijk[sel]))
+            pos = ki.lookup(new.level_cell_key(l, nijk[sel]))
             hit = pos >= 0
             out[sel[hit]] = act[pos[hit]]
             sel = sel[~hit]
         if len(sel) and (l - 1) in per_level:
             ki, act = per_level[l - 1]
-            pos = ki.lookup(new.level_cell_key(l - 1, new.ijk[sel] // 2))
+            pos = ki.lookup(new.level_cell_key(l - 1, nijk[sel] >> 1))
             hit = pos >= 0
             out[sel[hit]] = act[pos[hit]]
             sel = sel[~hit]
@@ -55,63 +54,87 @@ def old_cell_of_new(old: Forest, new: Forest) -> np.ndarray:
     return out
 
 
-def transfer_solution(old: Forest, new: Forest, u_old: np.ndarray,
+def _last_writer(targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For flat write targets in write order: the distinct targets and,
+    for each, the position of its last write (sequential assignment
+    semantics, by a stable sort instead of a racing scatter)."""
+    st, order = torch.sort(targets, stable=True)
+    last = torch.ones_like(st, dtype=torch.bool)
+    last[:-1] = st[1:] != st[:-1]
+    return st[last], order[last]
+
+
+def transfer_solution(old: Forest, new: Forest, u_old,
                       degree: int = 1,
-                      omap: np.ndarray = None) -> np.ndarray:
-    """Q_degree interpolation of the old solution onto new-mesh dofs.
+                      omap: torch.Tensor = None) -> torch.Tensor:
+    """Q_degree interpolation of the old solution onto new-mesh dofs;
+    float64 on ``new.device``.
 
     Refine-only transfer means every new cell sits at one of exactly
     1 + 2^dim positions inside its covering old cell: itself (same level)
     or one child octant.  The per-node basis weights therefore collapse to
     2^dim precomputed (nb x nb) embedding matrices — a grouped gather +
-    small matmul instead of evaluating the basis at n_new x nb arbitrary
-    points (72 s -> ~2 s at 1.8M cells).  ``omap`` (old_cell_of_new) may be
-    passed in to share the covering map with transfer_cell_mask — building
-    it costs a per-level key sort + lookup over every new cell."""
+    small product instead of evaluating the basis at n_new x nb arbitrary
+    points.  Each product sums its nb terms in index order, the same
+    order on every device.  A dof shared by several new cells
+    takes the value of its last writer in the order unchanged cells, then
+    octant 0, 1, ... (cells in index order within each), as sequential
+    assignment would.  ``omap`` (old_cell_of_new) may be passed in to share
+    the covering map with transfer_cell_mask."""
     dim = old.dim
     if omap is None:
         omap = old_cell_of_new(old, new)
+    dev = omap.device
     odofs, ndofs = old.dofs_of(degree), new.dofs_of(degree)
-    u_cell_old = np.asarray(u_old)[odofs.cell2dof[omap]]   # (n_new, nb)
-    from coulomb_gmg_tpu_torch.mesh.forest import node_offsets
+    u = (u_old if isinstance(u_old, torch.Tensor)
+         else torch.from_numpy(np.asarray(u_old, np.float64)))
+    u_cell_old = u.to(dev, torch.float64)[odofs.cell2dof[omap]]  # (n_new, nb)
     off = node_offsets(dim, degree).astype(np.float64) / degree  # (nb, dim)
     nb = (degree + 1) ** dim
-    u_new = np.zeros(ndofs.n_dofs)
 
-    is_child = new.level != old.level[omap]
-    # unchanged cells: node values copy through (weights are exact 0/1)
-    same = ~is_child
-    if same.any():
-        u_new[ndofs.cell2dof[same]] = u_cell_old[same]
-    if is_child.any():
-        # octant of each child inside its parent
-        oct_id = (new.ijk[:, 0] & 1).astype(np.int64)
-        for d in range(1, dim):
-            oct_id |= (new.ijk[:, d] & 1).astype(np.int64) << d
+    is_child = new.level_t != old.level_t[omap]
+    oct_id = torch.where(is_child, new.ijk_t[:, 0] & 1, -1)
+    for d in range(1, dim):
+        oct_id = torch.where(is_child, oct_id | ((new.ijk_t[:, d] & 1) << d),
+                             -1)
+    vals = u_cell_old.clone()       # unchanged cells: copy through
+    for o in range(2 ** dim):
+        grp = torch.nonzero(oct_id == o).reshape(-1)
+        if len(grp) == 0:
+            continue
         # W[o] rows: parent-basis weights at child-node positions
         # t = (octant + node_offset) / 2
-        for o in range(2 ** dim):
-            grp = is_child & (oct_id == o)
-            if not grp.any():
-                continue
-            corner = np.array([(o >> d) & 1 for d in range(dim)], np.float64)
-            t = (corner[None, :] + off) * 0.5            # (nb, dim)
-            W = _basis_at(dim, degree, t)[0]             # (nb, nb)
-            u_new[ndofs.cell2dof[grp]] = u_cell_old[grp] @ W.T
+        corner = np.array([(o >> d) & 1 for d in range(dim)], np.float64)
+        t = (corner[None, :] + off) * 0.5            # (nb, dim)
+        W = torch.from_numpy(_basis_at(dim, degree, t)[0]).to(dev)
+        uc = u_cell_old[grp]
+        acc = uc[:, :1] * W[:, 0][None, :]
+        for k in range(1, nb):
+            acc = acc + uc[:, k:k + 1] * W[:, k][None, :]
+        vals[grp] = acc
+    # write order: unchanged cells first, then octant by octant
+    rank = torch.where(is_child, oct_id + 1, 0) * new.n_cells + torch.arange(
+        new.n_cells, device=dev)
+    order = torch.argsort(rank)
+    targets = ndofs.cell2dof[order].reshape(-1)
+    dofs_w, pos = _last_writer(targets)
+    u_new = torch.zeros(ndofs.n_dofs, dtype=torch.float64, device=dev)
+    u_new[dofs_w] = vals[order].reshape(-1)[pos]
     return u_new
 
 
-def transfer_cell_mask(old: Forest, new: Forest,
-                       mask_old: np.ndarray,
-                       omap: np.ndarray = None) -> np.ndarray:
+def transfer_cell_mask(old: Forest, new: Forest, mask_old,
+                       omap: torch.Tensor = None):
     """Per-cell atom mask/list migration: children inherit the parent's
-    set (unpack semantics of src/step-50.cc:441-456).  The row gather is
-    multi-GB at 64k atoms (1.8M cells x K~300 int32 list entries) — it
-    goes through the threaded native engine."""
-    from coulomb_gmg_tpu_torch.utils import native
+    set (unpack semantics of src/step-50.cc:441-456): a row gather by the
+    covering map, on the device where ``mask_old`` lives (a numpy mask is
+    gathered on the host and comes back as numpy)."""
     if omap is None:
         omap = old_cell_of_new(old, new)
-    return native.gather_rows(np.ascontiguousarray(mask_old), omap)
+    if isinstance(mask_old, torch.Tensor):
+        return mask_old[omap.to(mask_old.device)]
+    src = torch.from_numpy(np.ascontiguousarray(mask_old))
+    return src[torch.from_numpy(to_host(omap))].numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +197,7 @@ def coarsen_solution(old: Forest, new: Forest, u_old: np.ndarray,
     2x finer), so deal.II's interpolation (evaluate the old FE function at
     the new support points) reduces to exact nodal injection by lattice
     key."""
-    odofs, ndofs = old.dofs_of(degree), new.dofs_of(degree)
+    odofs, ndofs = old.dofs_of(degree).host, new.dofs_of(degree).host
     # node coords in each forest's own degree-lattice; rescale new coords
     # onto the old (finer or equal) lattice
     scale = old.fine_side // new.fine_side

@@ -39,9 +39,16 @@ loops.
 
 Float32 densities come from the tile kernel (``density_tiles``) or the
 dense kernel (no locality flag), float64 ones and ``density_tiles=False``
-from the mask and list branches of ops/density.py:compute_density.  Mesh,
-DoF and constraint topology stays on the host, in the package's numpy
-modules (mesh/, fem/, adapt/transfer.py).  ``write_vtu`` writes one VTU
+from the mask and list branches of ops/density.py:compute_density.  The
+forest (its refinement and balance) and the constraints, assembly plans,
+atom lists and output stay on the host in numpy; the cycle's derived
+topology is torch code on ``Simulation.device`` (``Forest.device``): the
+DoF numbering with its hanging nodes and level DoFs (mesh/dofs.py), the
+solution transfer (adapt/transfer.py), the level topology and copy maps
+of the device GMG (ops/stencil.py, solver/device_gmg.py), and the face
+plans, Kelly estimate and marking (adapt/estimator.py).  Host consumers
+read those arrays through one host copy each (``DofInfo.host``).
+``write_vtu`` writes one VTU
 piece per shard, a PVTU and a VisIt record per cycle (io/vtu.py), and the
 gnuplot grid scripts in 2D (io/gnuplot.py).
 """
@@ -71,7 +78,7 @@ from coulomb_gmg_tpu_torch.io.lammps import AtomData, read_lammps_file
 from coulomb_gmg_tpu_torch.io.vtu import (nodal_gradient, write_pvtu,
                                           write_visit_record, write_vtu)
 from coulomb_gmg_tpu_torch.mesh.dofs import restrict_to_vertices
-from coulomb_gmg_tpu_torch.mesh.forest import Forest
+from coulomb_gmg_tpu_torch.mesh.forest import Forest, to_host
 from coulomb_gmg_tpu_torch.ops.q1 import element_tables
 from coulomb_gmg_tpu_torch.utils.logging import Pcout, sci10, fix10
 from coulomb_gmg_tpu_torch.utils.platform import world_size
@@ -186,14 +193,15 @@ class Simulation:
             # hyper_cube + refine_global (src/step-50.cc:1496-1497)
             return Forest.hyper_cube(cfg.dim, cfg.domain_left,
                                      cfg.domain_right,
-                                     cfg.n_global_refinements)
+                                     cfg.n_global_refinements, self.device)
         # subdivided rectangle with vacuum margin (src/step-50.cc:1504-1526)
         a = 2.0 * cfg.mesh_size_h
         N = (cfg.domain_right - cfg.domain_left) / a
         M = cfg.vacuum_repetitions
         reps = int(round(2 * (N + 2 * M)))
         lower = np.full(cfg.dim, cfg.domain_left - M * a)
-        return Forest.uniform(cfg.dim, reps, lower, cfg.mesh_size_h)
+        return Forest.uniform(cfg.dim, reps, lower, cfg.mesh_size_h,
+                              self.device)
 
     def coeff_fn(self):
         """The Step16 coefficient; None (unit) for GaussianCharges."""
@@ -322,7 +330,8 @@ class Simulation:
         with self._stage("Setup system"):
             self.constraints = build_constraints(dofs, self.boundary_fn())
             self.plan = (None if self.device_ops
-                         else build_plan(dofs.cell2dof, self.constraints))
+                         else build_plan(dofs.host.cell2dof,
+                                         self.constraints))
 
     # ----------------------------------------------------------- assembly
 
@@ -570,26 +579,27 @@ class Simulation:
         with self._stage("Estimate error and mark cells"):
             if self._face_plan is None:
                 self._face_plan = build_face_plan(self.forest)
-            cell2dof = self.forest.dofs_of(cfg.degree).cell2dof
+            dofs = self.forest.dofs_of(cfg.degree)
             if (self.spmd is not None and not cfg.estimator_volume_term
                     and cfg.degree == 1):
                 # Kelly face jumps sharded over the shards
-                # (src/step-50.cc:1020-1090)
-                err = self.spmd.estimate(self.forest, cell2dof,
-                                         np.asarray(self.solution),
-                                         plan=self._face_plan)
+                # (src/step-50.cc:1020-1090), from host gather tables
+                err = torch.from_numpy(self.spmd.estimate(
+                    self.forest, dofs.host.cell2dof,
+                    np.asarray(self.solution), plan=self._face_plan))
             else:
-                rho_q = (self.rho_host() if cfg.estimator_volume_term
-                         else None)
-                err = estimate(self.forest, cell2dof,
+                rho_q = (self.rho[: self.forest.n_cells]
+                         if cfg.estimator_volume_term else None)
+                err = estimate(self.forest, dofs.cell2dof,
                                np.asarray(self.solution), rho_q,
                                self.tab_rhs.points, self.tab_rhs.weights,
                                degree=cfg.degree,
                                use_volume_term=cfg.estimator_volume_term,
                                plan=self._face_plan)
             self.error_per_cell = err
-            self.flags, self.threshold = mark_cells(
-                err, cfg.refine_fraction_of_max)
+            flags, self.threshold = mark_cells(err,
+                                               cfg.refine_fraction_of_max)
+            self.flags = to_host(flags)      # Forest.refine is host numpy
         self.pcout("Threshold value for refinement:\t"
                    + sci10(self.threshold))
 
@@ -642,7 +652,7 @@ class Simulation:
         own cells."""
         cfg = self.cfg
         f = self.forest
-        pos = f.dofs.positions
+        pos = f.dofs.host.positions
         t64 = lambda a: torch.from_numpy(np.asarray(a, np.float64))
         # vertex-based: higher-degree solutions are restricted to their
         # vertex values
@@ -668,7 +678,7 @@ class Simulation:
         cell_data = {"subdomain": owners.astype(np.float64)}
         if self.error_per_cell is not None and \
                 len(self.error_per_cell) == f.n_cells:
-            cell_data["error_indicator"] = self.error_per_cell
+            cell_data["error_indicator"] = to_host(self.error_per_cell)
         if cfg.flag_atoms_support and self.lammpsinput and \
                 cfg.flag_rhs_assembly and self.mask is not None:
             for i in range(self.atoms.n):
@@ -699,8 +709,8 @@ class Simulation:
             if self.lists is not None:
                 self.lists = transfer_cell_mask(old, new, self.lists,
                                                 omap=omap)
-            u_new = transfer_solution(old, new, self.solution,
-                                      degree=cfg.degree, omap=omap)
+            u_new = to_host(transfer_solution(old, new, self.solution,
+                                              degree=cfg.degree, omap=omap))
             if self._face_plan is not None:
                 self._face_plan = update_face_plan(old, new, self._face_plan,
                                                    omap)
@@ -719,8 +729,9 @@ class Simulation:
         start_cycle = 0
         if cfg.resume_from:
             from coulomb_gmg_tpu_torch.utils.checkpoint import load_checkpoint
-            (self.forest, self.solution, self.flags, self.mask, self.lists,
+            (forest, self.solution, self.flags, self.mask, self.lists,
              done) = load_checkpoint(cfg.resume_from)
+            self.forest = forest.on(self.device)
             start_cycle = done + 1
             pc(f"Resuming after cycle {done} from {cfg.resume_from}")
 

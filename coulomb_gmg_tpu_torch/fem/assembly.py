@@ -211,8 +211,10 @@ def _expand_entries(cell2dof: np.ndarray, crow: np.ndarray,
 
 
 def build_plan(cell2dof: np.ndarray, constraints: Constraints) -> AssemblyPlan:
+    from coulomb_gmg_tpu_torch.mesh.forest import to_host
     from coulomb_gmg_tpu_torch.utils import native
 
+    cell2dof = to_host(cell2dof)
     n_cells, n_basis = cell2dof.shape
     n = constraints.n_dofs
     crow = constraints.row_of(cell2dof.reshape(-1)).reshape(n_cells, n_basis)

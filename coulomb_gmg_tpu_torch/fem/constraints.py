@@ -25,6 +25,7 @@ def build_constraints(dofs: DofInfo,
     include_boundary=False gives hanging-node-only constraints (the
     reference's separate ``hanging_node_constraints`` object).
     """
+    dofs = dofs.host                 # one host copy of the DoF arrays
     n = dofs.n_dofs
     h_rows, h_cols, h_w = dofs.hanging_pairs
 

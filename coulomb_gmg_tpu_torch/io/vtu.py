@@ -75,7 +75,7 @@ def write_vtu(path: str, forest: Forest,
     ``encoding``: "binary" (zlib+base64, the production default) or
     "ascii"."""
     assert encoding in ("binary", "ascii")
-    dofs = forest.dofs
+    dofs = forest.dofs.host
     pts = dofs.positions
     if forest.dim == 2:
         pts = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1)
@@ -150,7 +150,7 @@ def nodal_gradient(forest: Forest, u: np.ndarray) -> np.ndarray:
     src/step-50.cc:1123-1147, rendered as nodal data)."""
     from coulomb_gmg_tpu_torch.ops.q1 import _basis_at
     dim = forest.dim
-    dofs = forest.dofs
+    dofs = forest.dofs.host
     off = corner_offsets(dim).astype(np.float64)
     grads_at_corners = _basis_at(dim, 1, off)[1]        # (nb, nb, dim)
     ucell = np.asarray(u)[dofs.cell2dof]                # (c, nb)

@@ -11,17 +11,24 @@ parameter, ``src/step-50.cc:80``): Q_p dofs are points of the node lattice
 (the finest cell lattice subdivided p times per axis), hanging constraints
 interpolate through the coarse side's face/edge Lagrange basis, and every
 multigrid level carries its own Q_p node set.
+
+The numbering, the hanging-node pairs and the level DoFs are torch code on
+the forest's device (``Forest.device``): their arrays are tensors there.
+Host consumers (constraints, the assembly plan, output) read them through
+``DofInfo.host`` / ``LevelDofs.host``, one copy per array.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List, Optional
+from dataclasses import dataclass
+from functools import cached_property
+from typing import List
 
 import numpy as np
+import torch
 
-from coulomb_gmg_tpu_torch.mesh.forest import (Forest, KeyIndex, corner_offsets,
-                                         node_offsets)
+from coulomb_gmg_tpu_torch.mesh.forest import (Forest, KeyIndex, node_offsets,
+                                               to_host)
 
 
 @dataclass
@@ -56,65 +63,101 @@ class Constraints:
         return np.where(hit, pos, -1)
 
 
+class HostView:
+    """numpy view of a record whose arrays are tensors on a device: each
+    array is copied to the host once, on first use (``to_host``); lists of
+    records give their own views."""
+
+    def __init__(self, rec):
+        self._rec = rec
+
+    def __getattr__(self, name):
+        v = getattr(self._rec, name)
+        if isinstance(v, torch.Tensor):
+            v = to_host(v)
+        elif isinstance(v, tuple):
+            v = tuple(to_host(x) for x in v)
+        elif isinstance(v, list):
+            v = [x.host if hasattr(x, "host") else x for x in v]
+        self.__dict__[name] = v
+        return v
+
+
 @dataclass
 class LevelDofs:
-    """DoFs of the level-l mesh (all tree cells at level l)."""
+    """DoFs of the level-l mesh (all tree cells at level l); tensors on the
+    forest's device."""
 
     level: int
-    keys: np.ndarray            # sorted unique node-lattice keys
-    cell2dof: np.ndarray        # (n_level_cells, (p+1)^dim) level-dof ids
-    active_index: np.ndarray    # (n_level_cells,) active cell id or -1
-    boundary: np.ndarray        # (n_dofs,) bool: on domain boundary
-    interface: np.ndarray       # (n_dofs,) bool: on refinement edge
+    keys: torch.Tensor          # sorted unique node-lattice keys
+    cell2dof: torch.Tensor      # (n_level_cells, (p+1)^dim) level-dof ids
+    active_index: torch.Tensor  # (n_level_cells,) active cell id or -1
+    boundary: torch.Tensor      # (n_dofs,) bool: on domain boundary
+    interface: torch.Tensor     # (n_dofs,) bool: on refinement edge
     n_dofs: int
     degree: int = 1
+
+    @cached_property
+    def host(self) -> HostView:
+        return HostView(self)
 
 
 @dataclass
 class DofInfo:
+    """Global DoFs; tensors on the forest's device."""
+
     forest: Forest
-    keys: np.ndarray            # sorted unique node keys -> global dof id
-    cell2dof: np.ndarray        # (n_cells, (p+1)^dim) int64
-    boundary: np.ndarray        # (n_dofs,) bool
-    positions: np.ndarray       # (n_dofs, dim) float64
+    keys: torch.Tensor          # sorted unique node keys -> global dof id
+    cell2dof: torch.Tensor      # (n_cells, (p+1)^dim) int64
+    boundary: torch.Tensor      # (n_dofs,) bool
+    positions: torch.Tensor     # (n_dofs, dim) float64
     levels: List[LevelDofs]
-    hanging_pairs: tuple        # raw (rows, cols(list), weights) pre-resolution
+    hanging_pairs: tuple        # raw (rows, cols, weights) pre-resolution
     degree: int = 1
 
     @property
     def n_dofs(self) -> int:
         return len(self.keys)
 
+    @cached_property
+    def host(self) -> HostView:
+        return HostView(self)
 
-def _cell_node_keys(forest: Forest, degree: int) -> np.ndarray:
+
+def _cell_node_keys(forest: Forest, degree: int) -> torch.Tensor:
     """(n_cells, (p+1)^dim) node-lattice keys of active cells, in the
     element-table basis order."""
-    s = (1 << (forest.max_level - forest.level.astype(np.int64)))
-    off = node_offsets(forest.dim, degree)
+    lvl, ijk = forest.level_t, forest.ijk_t
+    s = torch.ones_like(lvl) << (forest.max_level - lvl)
+    off = torch.from_numpy(node_offsets(forest.dim, degree)).to(lvl.device)
     # node coord = cell base (fine lattice) * degree + offset * cell size
-    nodes = (forest.ijk[:, None, :] * np.int64(degree)
-             + off[None, :, :]) * s[:, None, None]
+    nodes = (ijk[:, None, :] * degree + off[None, :, :]) * s[:, None, None]
     return forest.nkey(nodes, degree)
 
 
-def build_dofs(forest: Forest, degree: int = 1) -> DofInfo:
-    from coulomb_gmg_tpu_torch.utils import native
-    dim = forest.dim
-    ckeys = _cell_node_keys(forest, degree)
-    uniq, inverse = native.sort_unique_inverse(ckeys.reshape(-1))
+def _index(keys: torch.Tensor) -> KeyIndex:
     kidx = KeyIndex.__new__(KeyIndex)
-    kidx.keys = uniq
-    cell2dof = inverse.reshape(ckeys.shape)
-    coords = forest.nkey_to_coords(kidx.keys, degree)
+    kidx.keys = keys
+    return kidx
+
+
+def _numbering(forest: Forest, keys: torch.Tensor, degree: int):
+    """Sorted unique keys of a node-key table, the table as ids into them,
+    and the boundary flag of each unique node."""
+    uniq, inverse = torch.unique(keys.reshape(-1), return_inverse=True)
+    coords = forest.nkey_to_coords(uniq, degree)
     S = forest.fine_side * degree
-    boundary = ((coords == 0) | (coords == S)).any(axis=1)
+    boundary = ((coords == 0) | (coords == S)).any(dim=1)
+    return uniq, inverse.reshape(keys.shape), coords, boundary
+
+
+def build_dofs(forest: Forest, degree: int = 1) -> DofInfo:
+    ckeys = _cell_node_keys(forest, degree)
+    uniq, cell2dof, coords, boundary = _numbering(forest, ckeys, degree)
     positions = forest.node_position(coords, degree)
-
-    hanging = _find_hanging(forest, kidx, degree)
-
+    hanging = _find_hanging(forest, _index(uniq), degree)
     levels = [_build_level(forest, l, degree) for l in range(forest.n_levels)]
-
-    return DofInfo(forest=forest, keys=kidx.keys, cell2dof=cell2dof,
+    return DofInfo(forest=forest, keys=uniq, cell2dof=cell2dof,
                    boundary=boundary, positions=positions, levels=levels,
                    hanging_pairs=hanging, degree=degree)
 
@@ -134,113 +177,138 @@ def _find_hanging(forest: Forest, kidx: KeyIndex, degree: int = 1):
     ``make_hanging_node_constraints`` semantics.  Q1 reduces to the classic
     1/2-1/2 edge-midpoint and 1/4 face-center weights.
 
-    Returns flat triples (rows, cols, weights) over kidx positions.
-    Chains are resolved later against Dirichlet data in
-    ``fem.constraints.build_constraints``.
+    Returns flat triples (rows, cols, weights) over kidx positions, tensors
+    on the forest's device.  Chains are resolved later against Dirichlet
+    data in ``fem.constraints.build_constraints``.
     """
     from coulomb_gmg_tpu_torch.ops.q1 import lagrange_nodes_1d, _lagrange_eval
 
     dim = forest.dim
     p = degree
     L = forest.max_level
-    lvl = forest.level.astype(np.int64)
-    coarse = np.where(lvl < L)[0]   # only these can have finer face neighbors
-    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0))
+    lvl, ijk = forest.level_t, forest.ijk_t
+    dev = lvl.device
+    coarse = torch.nonzero(lvl < L).reshape(-1)   # only these can have
+    empty = (torch.zeros(0, dtype=torch.int64, device=dev),  # finer face
+             torch.zeros(0, dtype=torch.int64, device=dev),  # neighbors
+             torch.zeros(0, dtype=torch.float64, device=dev))
     if len(coarse) == 0:
         return empty
-    s = (1 << (L - lvl[coarse]))                   # fine-lattice cell size
-    base = forest.ijk[coarse] * np.int64(p) * s[:, None]   # node-lattice base
+    s = torch.ones_like(coarse) << (L - lvl[coarse])  # fine-lattice size
+    base = ijk[coarse] * p * s[:, None]               # node-lattice base
+    half = s // 2
     # cell size in node units = s*p; own node spacing = s; candidate (fine
     # side) spacing = s//2 — integer because lvl < L.
     nodes1 = lagrange_nodes_1d(p)
     tgrid = np.arange(1, 2 * p) / (2.0 * p)        # candidate fractions
     lag = _lagrange_eval(nodes1, tgrid)[0]         # (2p-1, p+1) basis values
 
-    rows_list, cols_list, w_list = [], [], []
+    # Candidates by facet kind (edges, then faces: the order of the
+    # emission): per candidate its keys (m,), its facet's column keys
+    # (m, k) and its weights (k,).  One selection a kind keeps the
+    # candidates present in the dof set, in emission order.
+    kinds = []
 
-    def _emit(cand_keys, col_keys, w):
-        """cand_keys (m,), col_keys (m, k), w (k,): keep candidates present
-        in the dof set."""
-        present = kidx.contains(cand_keys)
-        if not present.any():
-            return
-        rows_list.append(cand_keys[present])
-        cols_list.append(col_keys[present])
-        w_list.append(np.asarray(w))
+    def _kind():
+        kinds.append(([], [], [], []))    # candidates, facets, facet, w
+        return kinds[-1]
 
-    def _edge(axis, fixed):
+    def _edge(kind, axis, fixed):
         """Edge along `axis` with the other axes fixed at 0 or cell-size;
         fixed: {other_axis: 0|1}."""
-        e_base = base.copy()
+        cands, facets, facet, ws = kind
+        e_base = base.clone()
         for d, sidev in fixed.items():
             e_base[:, d] += sidev * s * p
+        cols = []
+        for j in range(p + 1):
+            c = e_base.clone()
+            c[:, axis] += j * s
+            cols.append(forest.nkey(c, p))
+        facets.append(torch.stack(cols, dim=1))
         # candidate points at odd multiples of s/2 along the edge
         for k in range(1, 2 * p, 2):
-            cand = e_base.copy()
-            cand[:, axis] += k * (s // 2)
-            cols = []
-            for j in range(p + 1):
-                c = e_base.copy()
-                c[:, axis] += j * s
-                cols.append(forest.nkey(c, p))
-            _emit(forest.nkey(cand, p), np.stack(cols, axis=1),
-                  lag[k - 1])   # tgrid index of k/(2p) is k-1
+            cand = e_base.clone()
+            cand[:, axis] += k * half
+            cands.append(forest.nkey(cand, p))
+            facet.append(len(facets) - 1)
+            ws.append(lag[k - 1])   # tgrid index of k/(2p) is k-1
 
-    def _face(axis, sidev, o1, o2):
-        f_base = base.copy()
+    def _face(kind, axis, sidev, o1, o2):
+        cands, facets, facet, ws = kind
+        f_base = base.clone()
         f_base[:, axis] += sidev * s * p
+        cols = []
+        for j1 in range(p + 1):
+            for j2 in range(p + 1):
+                c = f_base.clone()
+                c[:, o1] += j1 * s
+                c[:, o2] += j2 * s
+                cols.append(forest.nkey(c, p))
+        facets.append(torch.stack(cols, dim=1))
         for k1 in range(1, 2 * p):
             for k2 in range(1, 2 * p):
                 if k1 % 2 == 0 and k2 % 2 == 0:
                     continue   # coarse node (or edge-interior coarse node)
-                cand = f_base.copy()
-                cand[:, o1] += k1 * (s // 2)
-                cand[:, o2] += k2 * (s // 2)
-                cols, w = [], []
-                for j1 in range(p + 1):
-                    for j2 in range(p + 1):
-                        c = f_base.copy()
-                        c[:, o1] += j1 * s
-                        c[:, o2] += j2 * s
-                        cols.append(forest.nkey(c, p))
-                        w.append(lag[k1 - 1, j1] * lag[k2 - 1, j2])
-                _emit(forest.nkey(cand, p), np.stack(cols, axis=1),
-                      np.asarray(w))
+                cand = f_base.clone()
+                cand[:, o1] += k1 * half
+                cand[:, o2] += k2 * half
+                cands.append(forest.nkey(cand, p))
+                facet.append(len(facets) - 1)
+                ws.append([lag[k1 - 1, j1] * lag[k2 - 1, j2]
+                           for j1 in range(p + 1) for j2 in range(p + 1)])
 
+    edges = _kind()
     if dim == 2:
         for axis in range(2):
             o = 1 - axis
             for sidev in (0, 1):
-                _edge(axis, {o: sidev})
+                _edge(edges, axis, {o: sidev})
     else:
         for axis in range(3):
             o1, o2 = [d for d in range(3) if d != axis]
             for s1 in (0, 1):
                 for s2 in (0, 1):
-                    _edge(axis, {o1: s1, o2: s2})
+                    _edge(edges, axis, {o1: s1, o2: s2})
+        faces = _kind()
         for axis in range(3):
             o1, o2 = [d for d in range(3) if d != axis]
             for sidev in (0, 1):
-                _face(axis, sidev, o1, o2)
+                _face(faces, axis, sidev, o1, o2)
 
-    if not rows_list:
-        return empty
     # flatten to per-row variable-width: keep as (rows, cols, w) triples
-    rows = np.concatenate([np.repeat(kidx.lookup(r), c.shape[1])
-                           for r, c in zip(rows_list, cols_list)])
-    cols = np.concatenate([kidx.lookup(c).reshape(-1) for c in cols_list])
-    wts = np.concatenate([np.repeat(w[None, :], len(r), axis=0).reshape(-1)
-                          for r, w in zip(rows_list, w_list)])
+    rows, cols, wts = [], [], []
+    for cands, facets, facet, ws in kinds:
+        cands = torch.stack(cands)                       # (E, m)
+        # (candidate, cell) pairs present in the dof set, candidate-major
+        e, i = torch.nonzero(kidx.contains(cands), as_tuple=True)
+        c = kidx.lookup(torch.stack(facets)[
+            torch.tensor(facet, device=dev)[e], i])      # (n, k)
+        k = c.shape[1]
+        rows.append(kidx.lookup(cands[e, i])[:, None].expand(-1, k)
+                    .reshape(-1))
+        cols.append(c.reshape(-1))
+        wts.append(torch.tensor(np.asarray(ws, np.float64),
+                                device=dev)[e].reshape(-1))
+    rows, cols, wts = torch.cat(rows), torch.cat(cols), torch.cat(wts)
     # drop zero weights (a facet-basis value can vanish at a candidate) and
     # columns that are themselves hanging at the SAME position class are
     # impossible by construction (cols are coarse facet nodes).
-    nz = wts != 0.0
+    nz = torch.nonzero(wts != 0.0).reshape(-1)
     rows, cols, wts = rows[nz], cols[nz], wts[nz]
     # dedupe identical (row, col) pairs (the same point is emitted by every
-    # coarse cell sharing the edge/face) — weights agree, keep first.
-    pair = rows * np.int64(len(kidx)) + cols
-    _, first = np.unique(pair, return_index=True)
+    # coarse cell sharing the edge/face) — weights agree, keep the first.
+    first = _first_of_each(rows * len(kidx) + cols)
     return rows[first], cols[first], wts[first]
+
+
+def _first_of_each(key: torch.Tensor) -> torch.Tensor:
+    """Index of the first occurrence of each distinct value, in value
+    order (``np.unique(key, return_index=True)[1]``)."""
+    sk, order = torch.sort(key, stable=True)
+    start = torch.ones_like(sk, dtype=torch.bool)
+    start[1:] = sk[1:] != sk[:-1]
+    return order[start]
 
 
 def restrict_to_vertices(forest: Forest, dofs_p: DofInfo,
@@ -249,55 +317,53 @@ def restrict_to_vertices(forest: Forest, dofs_p: DofInfo,
     other vertex-based output paths stay Q1)."""
     if dofs_p.degree == 1:
         return np.asarray(u)
-    q1 = forest.dofs
+    q1 = forest.dofs.host
     coords = forest.vkey_to_coords(q1.keys)
     pk = forest.nkey(coords * np.int64(dofs_p.degree), dofs_p.degree)
-    pos = np.searchsorted(dofs_p.keys, pk)
-    assert (dofs_p.keys[pos] == pk).all(), "vertex missing from Q_p node set"
+    keys_p = dofs_p.host.keys
+    pos = np.searchsorted(keys_p, pk)
+    assert (keys_p[pos] == pk).all(), "vertex missing from Q_p node set"
     return np.asarray(u)[pos]
 
 
 # -------------------------------------------------------------- level dofs
 
 def _build_level(forest: Forest, l: int, degree: int = 1) -> LevelDofs:
-    from coulomb_gmg_tpu_torch.utils import native
     dim = forest.dim
     p = degree
     level_ijk, active_index = forest.level_cells[l]
     s = 1 << (forest.max_level - l)
-    off = node_offsets(dim, p)
-    nodes = (level_ijk[:, None, :] * np.int64(p) + off[None, :, :]) * s
-    keys = forest.nkey(nodes, p)
-    uniq, inverse = native.sort_unique_inverse(keys.reshape(-1))
-    kidx = KeyIndex.__new__(KeyIndex)
-    kidx.keys = uniq
-    cell2dof = inverse.reshape(keys.shape)
-    coords = forest.nkey_to_coords(kidx.keys, p)
-    S = forest.fine_side * p
-    boundary = ((coords == 0) | (coords == S)).any(axis=1)
+    off = torch.from_numpy(node_offsets(dim, p)).to(level_ijk.device)
+    nodes = (level_ijk[:, None, :] * p + off[None, :, :]) * s
+    uniq, cell2dof, _, boundary = _numbering(forest, forest.nkey(nodes, p), p)
+    kidx = _index(uniq)
 
     # refinement-edge (interface) dofs: dofs on faces of level-l cells whose
     # face neighbor is not part of the level-l mesh and is not the domain
     # boundary (deal.II MGConstrainedDoFs::get_refinement_edge_indices,
     # used at src/step-50.cc:860,892).
-    interface = np.zeros(len(kidx), dtype=bool)
+    # Every cell's face nodes are looked up; those of faces that are not on
+    # the refinement edge go to a spare last entry (no selection, no wait).
+    n = len(uniq)
+    interface = torch.zeros(n + 1, dtype=torch.bool, device=uniq.device)
     if l > 0:
         side = forest.side(l)
         cellset = KeyIndex(forest.level_cell_key(l, level_ijk))
+        off_h = node_offsets(dim, p)
         for axis in range(dim):
             for sgn in (-1, 1):
-                nb = level_ijk.copy()
+                nb = level_ijk.clone()
                 nb[:, axis] += sgn
                 inside = (nb[:, axis] >= 0) & (nb[:, axis] < side)
                 missing = inside & ~cellset.contains(
                     forest.level_cell_key(l, nb))
-                if not missing.any():
-                    continue
-                face_nodes = off[off[:, axis] == (p if sgn > 0 else 0)]
-                fc = (level_ijk[missing][:, None, :] * np.int64(p)
-                      + face_nodes[None]) * s
-                interface[kidx.lookup(forest.nkey(fc, p)).reshape(-1)] = True
+                face_nodes = torch.from_numpy(
+                    off_h[off_h[:, axis] == (p if sgn > 0 else 0)]).to(
+                        level_ijk.device)
+                fc = (level_ijk[:, None, :] * p + face_nodes[None]) * s
+                pos = kidx.lookup(forest.nkey(fc, p))
+                interface[torch.where(missing[:, None], pos, n)] = True
 
-    return LevelDofs(level=l, keys=kidx.keys, cell2dof=cell2dof,
+    return LevelDofs(level=l, keys=uniq, cell2dof=cell2dof,
                      active_index=active_index, boundary=boundary,
-                     interface=interface, n_dofs=len(kidx), degree=p)
+                     interface=interface[:n], n_dofs=n, degree=p)

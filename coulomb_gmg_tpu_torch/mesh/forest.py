@@ -5,8 +5,14 @@ TPU-native replacement for the reference's p4est-backed
 are flat integer arrays (level + integer lattice coordinates), refinement is
 vectorized child emission + canonical re-sort, and 2:1 *vertex* balance
 (deal.II's ``limit_level_difference_at_vertices``) is a vectorized cascade.
-All topology work happens on host in numpy; the resulting index maps feed
-jitted JAX compute.
+
+The forest itself (``level``, ``ijk``, ``refine``, ``balance_flags``,
+``coarsen``) is host numpy.  Its derived topology (the key helpers,
+:class:`KeyIndex`, ``level_cells`` and the DoF numbering of ``dofs_of``) is
+torch code on ``Forest.device``: the card when the driver runs there, the
+CPU otherwise.  The key helpers take a tensor or a numpy array and give
+back the same kind (a numpy argument runs the same torch code on a CPU
+view of it).
 
 Geometry convention: the level-0 ("base") mesh is ``R^dim`` cubic cells of
 size ``h0`` anchored at ``lower``; a cell at level ``l`` has integer coords
@@ -16,47 +22,96 @@ size ``h0`` anchored at ``lower``; a cell at level ``l`` has integer coords
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from functools import cached_property
+import dataclasses
+from dataclasses import dataclass, field
+from functools import cached_property, wraps
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def to_host(a) -> np.ndarray:
+    """numpy of a tensor: a CPU tensor's own memory, a card tensor through
+    one copy into pinned host memory.  numpy passes through."""
+    if not isinstance(a, torch.Tensor):
+        return a
+    if a.device.type == "cpu":
+        return a.numpy()
+    out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+    out.copy_(a)
+    return out.numpy()
+
+
+def _int64(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a if a.dtype == torch.int64 else a.to(torch.int64)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+
+
+def _same_kind(pos: int):
+    """Run a torch body on the array argument at position ``pos``, as
+    int64: a numpy argument goes in as a CPU tensor and comes back as
+    numpy."""
+    def wrap(fn):
+        @wraps(fn)
+        def run(self, *args):
+            args = list(args)
+            host = not isinstance(args[pos], torch.Tensor)
+            args[pos] = _int64(args[pos])
+            out = fn(self, *args)
+            return out.numpy() if host else out
+        return run
+    return wrap
 
 
 class KeyIndex:
-    """Sorted unique int64 key set with O(log n) vectorized lookup.
-    Backed by the native topology engine when available
-    (native/forest_engine.cpp), numpy otherwise."""
+    """Sorted unique int64 key set with O(log n) lookup
+    (``torch.searchsorted``) on the keys' device.  Lookups give back the
+    query's kind: tensor or numpy."""
 
-    def __init__(self, keys: np.ndarray):
-        from coulomb_gmg_tpu_torch.utils import native
-        self.keys, _ = native.sort_unique_inverse(
-            np.asarray(keys, dtype=np.int64))
+    def __init__(self, keys):
+        self.keys = torch.unique(_int64(keys))
 
     def __len__(self) -> int:
         return len(self.keys)
 
-    def lookup(self, query: np.ndarray) -> np.ndarray:
+    def lookup(self, query):
         """Positions of `query` in the key set, -1 where absent."""
-        from coulomb_gmg_tpu_torch.utils import native
-        query = np.asarray(query, dtype=np.int64)
+        if not isinstance(query, torch.Tensor):
+            return self.lookup(_int64(query)).numpy()
+        q = query.to(torch.int64).contiguous()
         if len(self.keys) == 0:
-            return np.full(query.shape, -1, dtype=np.int64)
-        return native.lookup(self.keys, query)
+            return torch.full_like(q, -1)
+        pos = torch.searchsorted(self.keys, q)
+        hit = self.keys[pos.clamp(max=len(self.keys) - 1)] == q
+        return torch.where(hit, pos, -1)
 
-    def contains(self, query: np.ndarray) -> np.ndarray:
+    def contains(self, query):
         return self.lookup(query) >= 0
 
     @staticmethod
-    def with_order(keys: np.ndarray):
+    def with_order(keys):
         """(KeyIndex, order) for keys KNOWN UNIQUE (e.g. level-cell keys):
-        one sort serves both the index and the position->original map,
-        instead of the KeyIndex(keys) + np.argsort(keys) double sort."""
-        keys = np.asarray(keys, dtype=np.int64)
-        order = np.argsort(keys, kind="stable")
+        one sort serves both the index and the position->original map.
+        ``order`` has the kind of ``keys``."""
+        t = _int64(keys)
+        order = torch.argsort(t, stable=True)
         ki = KeyIndex.__new__(KeyIndex)
-        ki.keys = keys[order]
-        return ki, order
+        ki.keys = t[order]
+        return ki, (order if isinstance(keys, torch.Tensor)
+                    else order.numpy())
+
+
+def active_level_index(f: "Forest") -> dict:
+    """Per level l of ``f``: (KeyIndex of its active level-l cells, their
+    active indices in key order), on ``f.device``."""
+    out = {}
+    for l in range(f.n_levels):
+        sel = torch.nonzero(f.level_t == l).reshape(-1)
+        ki, order = KeyIndex.with_order(f.level_cell_key(l, f.ijk_t[sel]))
+        out[l] = (ki, sel[order])
+    return out
 
 
 def corner_offsets(dim: int) -> np.ndarray:
@@ -114,6 +169,22 @@ class Forest:
     h0: float                      # level-0 cell size
     level: np.ndarray              # (n_cells,) int32, per active cell
     ijk: np.ndarray                # (n_cells, dim) int64
+    # where the derived topology (level_cells, dofs_of) is built
+    device: torch.device = field(default=torch.device("cpu"), compare=False)
+
+    def on(self, device) -> "Forest":
+        """The same forest with its derived topology built on ``device``."""
+        return dataclasses.replace(self, device=torch.device(device))
+
+    @cached_property
+    def level_t(self) -> torch.Tensor:
+        """``level`` as an int64 tensor on ``device``."""
+        return torch.from_numpy(self.level).to(self.device, torch.int64)
+
+    @cached_property
+    def ijk_t(self) -> torch.Tensor:
+        """``ijk`` as an int64 tensor on ``device``."""
+        return _int64(self.ijk).to(self.device)
 
     # ------------------------------------------------------------ basics
 
@@ -156,35 +227,39 @@ class Forest:
     # times per axis, so every Q_degree dof of every cell is an integer
     # lattice point (degree 1 = the vertex lattice).
 
-    def nkey(self, coords: np.ndarray, degree: int) -> np.ndarray:
+    @_same_kind(0)
+    def nkey(self, coords, degree: int):
         """Linearize node-lattice coords (..., dim) -> int64 keys."""
         m = self.fine_side * degree + 1
         assert float(m) ** self.dim < 2 ** 62, "lattice too fine for int64 keys"
-        coords = np.asarray(coords, dtype=np.int64)
         key = coords[..., 0]
         for d in range(1, self.dim):
             key = key * m + coords[..., d]
         return key
 
-    def nkey_to_coords(self, keys: np.ndarray, degree: int) -> np.ndarray:
+    @_same_kind(0)
+    def nkey_to_coords(self, keys, degree: int):
         m = self.fine_side * degree + 1
-        keys = np.asarray(keys, dtype=np.int64)
-        out = np.zeros(keys.shape + (self.dim,), dtype=np.int64)
+        out = torch.empty(keys.shape + (self.dim,), dtype=torch.int64,
+                          device=keys.device)
         for d in range(self.dim - 1, -1, -1):
             out[..., d] = keys % m
             keys = keys // m
         return out
 
-    def node_position(self, coords: np.ndarray, degree: int) -> np.ndarray:
-        """Physical position of node-lattice coords (..., dim)."""
+    def node_position(self, coords, degree: int):
+        """Physical position of node-lattice coords (..., dim), float64."""
         hn = self.h0 / ((1 << self.max_level) * degree)
-        return self.lower + hn * np.asarray(coords, dtype=np.float64)
+        c = coords if isinstance(coords, torch.Tensor) else _int64(coords)
+        lower = torch.from_numpy(np.asarray(self.lower, np.float64))
+        out = lower.to(c.device) + hn * c.to(torch.float64)
+        return out if isinstance(coords, torch.Tensor) else out.numpy()
 
-    def level_cell_key(self, level, ijk: np.ndarray) -> np.ndarray:
+    @_same_kind(1)
+    def level_cell_key(self, level, ijk):
         """Linearized per-level cell key (no level tag; caller keeps levels
         separate)."""
-        side = np.int64(self.side(int(np.max(level)) if np.ndim(level) else int(level)))
-        ijk = np.asarray(ijk, dtype=np.int64)
+        side = self.side(int(np.max(level)) if np.ndim(level) else int(level))
         key = ijk[..., 0]
         for d in range(1, self.dim):
             key = key * side + ijk[..., d]
@@ -193,7 +268,8 @@ class Forest:
     # ------------------------------------------------------- constructors
 
     @staticmethod
-    def uniform(dim: int, reps: int, lower, h0: float) -> "Forest":
+    def uniform(dim: int, reps: int, lower, h0: float,
+                device="cpu") -> "Forest":
         """Base mesh: `reps`^dim cells — the analogue of
         ``GridGenerator::subdivided_hyper_rectangle`` (src/step-50.cc:1526)."""
         axes = [np.arange(reps, dtype=np.int64)] * dim
@@ -201,15 +277,16 @@ class Forest:
         ijk = grid.reshape(-1, dim)   # x slowest — matches _canonical_order
         return Forest(dim=dim, base_reps=reps,
                       lower=np.asarray(lower, dtype=np.float64), h0=float(h0),
-                      level=np.zeros(len(ijk), dtype=np.int32), ijk=ijk)
+                      level=np.zeros(len(ijk), dtype=np.int32), ijk=ijk,
+                      device=torch.device(device))
 
     @staticmethod
     def hyper_cube(dim: int, left: float, right: float,
-                   n_global_refinements: int) -> "Forest":
+                   n_global_refinements: int, device="cpu") -> "Forest":
         """``GridGenerator::hyper_cube`` + ``refine_global(n)``
         (src/step-50.cc:1496-1497): a single base cell refined globally so
         the multigrid hierarchy retains every level 0..n."""
-        f = Forest.uniform(dim, 1, np.full(dim, left), right - left)
+        f = Forest.uniform(dim, 1, np.full(dim, left), right - left, device)
         for _ in range(n_global_refinements):
             f = f.refine(np.ones(f.n_cells, dtype=bool))
         return f
@@ -233,7 +310,7 @@ class Forest:
         ijk = np.concatenate([keep_ijk, ch_ijk])
         order = _canonical_order(self.base_reps, self.dim, level, ijk)
         return Forest(self.dim, self.base_reps, self.lower, self.h0,
-                      level[order].astype(np.int32), ijk[order])
+                      level[order].astype(np.int32), ijk[order], self.device)
 
     def coarsen(self, flags: np.ndarray) -> "Forest":
         """Replace complete flagged sibling groups by their parent — the
@@ -295,7 +372,7 @@ class Forest:
         ijk = np.concatenate([self.ijk[alive]] + added_ijk)
         order = _canonical_order(self.base_reps, self.dim, level, ijk)
         return Forest(self.dim, self.base_reps, self.lower, self.h0,
-                      level[order].astype(np.int32), ijk[order])
+                      level[order].astype(np.int32), ijk[order], self.device)
 
     def balance_flags(self, flags: np.ndarray) -> np.ndarray:
         """Augment refine flags for 2:1 vertex balance.
@@ -377,33 +454,37 @@ class Forest:
     # --------------------------------------------------------- level mesh
 
     @cached_property
-    def level_cells(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+    def level_cells(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Per level l: (level_ijk (m, dim) int64, active_index (m,) int64
-        with -1 where the level cell is a non-active ancestor).
+        with -1 where the level cell is a non-active ancestor), tensors on
+        ``device``, cells in level-key order.
 
         Level-l mesh = all tree cells at level l: active cells of level l
         plus level-l ancestors of deeper active cells — deal.II's
         distributed level hierarchy (src/step-50.cc:716-731).
         """
         out = []
-        lvl = self.level.astype(np.int64)
+        lvl, ijk = self.level_t, self.ijk_t
         for l in range(self.n_levels):
-            at = np.where(lvl == l)[0]
-            deeper = np.where(lvl > l)[0]
-            anc = self.ijk[deeper] // (1 << (lvl[deeper, None] - l))
-            all_ijk = np.concatenate([self.ijk[at], anc])
-            act = np.concatenate([at, np.full(len(anc), -1, dtype=np.int64)])
-            side = np.int64(self.side(l))
-            lin = all_ijk[:, 0].copy()
-            for d in range(1, self.dim):
-                lin = lin * side + all_ijk[:, d]
-            uniq, inv = np.unique(lin, return_inverse=True)
-            keep_act = np.full(len(uniq), -1, dtype=np.int64)
+            at = torch.nonzero(lvl == l).reshape(-1)
+            deeper = torch.nonzero(lvl > l).reshape(-1)
+            anc = ijk[deeper] >> (lvl[deeper, None] - l)
+            lin = self.level_cell_key(l, torch.cat([ijk[at], anc]))
+            uniq, inv = torch.unique(lin, return_inverse=True)
+            keep_act = torch.full((len(uniq),), -1, dtype=torch.int64,
+                                  device=lvl.device)
             keep_act[inv[: len(at)]] = at     # active entries win
-            coords = np.zeros((len(uniq), self.dim), dtype=np.int64)
-            rem = uniq.copy()
+            side = self.side(l)
+            coords = torch.empty((len(uniq), self.dim), dtype=torch.int64,
+                                 device=lvl.device)
+            rem = uniq
             for d in range(self.dim - 1, -1, -1):
                 coords[:, d] = rem % side
-                rem //= side
+                rem = rem // side
             out.append((coords, keep_act))
         return out
+
+    @cached_property
+    def level_cells_host(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """``level_cells`` as numpy, for host consumers."""
+        return [(to_host(c), to_host(a)) for c, a in self.level_cells]

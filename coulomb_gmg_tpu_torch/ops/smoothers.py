@@ -205,6 +205,7 @@ def lattice_color(forest, level_dofs) -> np.ndarray:
     """2^dim-colouring of level dofs by the parity of their lattice
     coordinates at the level's resolution (exact for Q1; for p > 1 a
     heuristic)."""
+    level_dofs = level_dofs.host
     p = getattr(level_dofs, "degree", 1)
     coords = forest.nkey_to_coords(level_dofs.keys, p)
     s = 1 << (forest.max_level - level_dofs.level)

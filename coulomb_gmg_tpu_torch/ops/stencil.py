@@ -5,9 +5,11 @@ Counterpart of coulomb_gmg_tpu/ops/stencil.py.  With unit coefficient and
 Q1 elements every level mesh is a subset of a uniform lattice, so each level
 matrix is a 3^dim-point stencil whose weights at a node depend only on which
 of its 2^dim adjacent cells exist: a lookup into the table ``T[mask, o]``.
-The host half (``offset3``, ``stencil_table``, ``level_topology``,
-``topology_signature``) is numpy, copied from the JAX module because that
-module imports jax.  The device half is PyTorch; the lexicographic (hi, lo)
+The reference tables (``offset3``, ``stencil_table``) are numpy, copied
+from the JAX module because that module imports jax.  The compact level
+inputs (``level_topology``) are torch code on the forest's device, and
+``topology_signature`` hashes one host copy of them.  The operator build is
+PyTorch on the device; the lexicographic (hi, lo)
 int32 bisection of the JAX module (a memory workaround for XLA) becomes one
 ``torch.searchsorted`` over int64 keys ``hi * (side + 1) + lo``.
 
@@ -22,7 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu_torch.mesh.forest import Forest, corner_offsets
+from coulomb_gmg_tpu_torch.mesh.forest import (Forest, KeyIndex,
+                                               corner_offsets, to_host)
 from coulomb_gmg_tpu_torch.mesh.dofs import LevelDofs
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 
@@ -73,21 +76,22 @@ def stencil_table(dim: int, tables) -> np.ndarray:
 
 @dataclass
 class LevelTopology:
-    """Compact inputs for one level's device-side operator build."""
+    """Compact inputs for one level's device-side operator build; tensors
+    on the forest's device."""
 
     level: int
     n: int                      # true dof count
     side: int                   # level lattice side (cells per axis)
-    coords: np.ndarray          # (n, dim) int16/int32 level-local node coords
-    mask8: np.ndarray           # (n,) uint8 adjacent-cell existence bits
-    elim: np.ndarray            # (n,) bool: interface | boundary (eliminated)
-    iface: np.ndarray           # (n,) bool: refinement-edge dofs
-    boundary: np.ndarray        # (n,) bool: domain-boundary dofs
+    coords: torch.Tensor        # (n, dim) int16/int32 level-local node coords
+    mask8: torch.Tensor         # (n,) uint8 adjacent-cell existence bits
+    elim: torch.Tensor          # (n,) bool: interface | boundary (eliminated)
+    iface: torch.Tensor         # (n,) bool: refinement-edge dofs
+    boundary: torch.Tensor      # (n,) bool: domain-boundary dofs
     h: float                    # level cell size
 
 
 def level_topology(forest: Forest, ld: LevelDofs, l: int) -> LevelTopology:
-    """Host-side extraction of the compact level inputs (degree 1 only)."""
+    """The compact level inputs (degree 1 only), on the forest's device."""
     if ld.degree != 1:
         raise ValueError("stencil operators are Q1-only")
     dim = forest.dim
@@ -95,33 +99,30 @@ def level_topology(forest: Forest, ld: LevelDofs, l: int) -> LevelTopology:
     coords = forest.nkey_to_coords(ld.keys, 1) >> shift    # level lattice
     side = forest.side(l)
     level_ijk, _ = forest.level_cells[l]
-    cell_keys = np.sort(forest.level_cell_key(l, level_ijk))
-    corners = corner_offsets(dim)
-    mask8 = np.zeros(len(coords), np.uint8)
+    cells = KeyIndex(forest.level_cell_key(l, level_ijk))
+    corners = torch.from_numpy(corner_offsets(dim)).to(coords.device)
+    mask8 = torch.zeros(len(coords), dtype=torch.uint8, device=coords.device)
     for c in range(2 ** dim):
         cand = coords - corners[c]
-        ok = ((cand >= 0) & (cand < side)).all(axis=1)
-        key = forest.level_cell_key(l, np.where(ok[:, None], cand, 0))
-        pos = np.searchsorted(cell_keys, key)
-        pos = np.minimum(pos, len(cell_keys) - 1)
-        present = ok & (cell_keys[pos] == key)
-        mask8 |= (present.astype(np.uint8) << c)
-    ctype = np.int16 if side + 2 < 2 ** 15 else np.int32
+        ok = ((cand >= 0) & (cand < side)).all(dim=1)
+        key = forest.level_cell_key(l, torch.where(ok[:, None], cand, 0))
+        present = ok & cells.contains(key)
+        mask8 |= present.to(torch.uint8) << c
+    ctype = torch.int16 if side + 2 < 2 ** 15 else torch.int32
     return LevelTopology(level=l, n=ld.n_dofs, side=int(side),
-                         coords=coords.astype(ctype), mask8=mask8,
-                         elim=(ld.interface | ld.boundary),
-                         iface=ld.interface.copy(),
-                         boundary=ld.boundary.copy(), h=float(forest.h(l)))
+                         coords=coords.to(ctype), mask8=mask8,
+                         elim=ld.interface | ld.boundary,
+                         iface=ld.interface.clone(),
+                         boundary=ld.boundary.clone(), h=float(forest.h(l)))
 
 
 def topology_signature(t: LevelTopology) -> tuple:
-    """Content key for cross-cycle reuse of device-built level operators."""
+    """Content key for cross-cycle reuse of device-built level operators:
+    SHA-1 of one host copy of the compact arrays."""
     import hashlib
     h = hashlib.sha1()
-    h.update(np.ascontiguousarray(t.coords))
-    h.update(np.ascontiguousarray(t.mask8))
-    h.update(np.ascontiguousarray(t.elim))
-    h.update(np.ascontiguousarray(t.iface))
+    for a in (t.coords, t.mask8, t.elim, t.iface):
+        h.update(np.ascontiguousarray(to_host(a)))
     return (t.level, t.n, t.side, h.hexdigest())
 
 

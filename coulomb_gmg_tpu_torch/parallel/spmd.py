@@ -61,6 +61,7 @@ from coulomb_gmg_tpu_torch.adapt.estimator import (_face_grad_tables,
                                                    build_face_plan)
 from coulomb_gmg_tpu_torch.device import resolve
 from coulomb_gmg_tpu_torch.fem.assembly import gather_sum
+from coulomb_gmg_tpu_torch.mesh.forest import to_host
 from coulomb_gmg_tpu_torch.ops import tile_density as td
 from coulomb_gmg_tpu_torch.ops.density import compute_density
 from coulomb_gmg_tpu_torch.postprocess.energy import (electrostatic_energy,
@@ -373,6 +374,7 @@ class SpmdContext:
             raise ValueError("the sharded estimator is Q1-only")
         if plan is None:
             plan = build_face_plan(forest)
+        plan, cell2dof = plan.host, to_host(cell2dof)   # host gather tables
         grads, fweights, sub_grads = _face_grad_tables(dim, 1, 2)
         # the face groups of the host estimator: (a, b, Ga, Gb, w)
         groups = []

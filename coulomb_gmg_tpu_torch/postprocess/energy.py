@@ -63,7 +63,7 @@ def point_values(forest: Forest, u: np.ndarray, points: np.ndarray,
     lower = forest.cell_lower(cells)
     h = forest.cell_h(cells)
     t = (points - lower) / h[:, None]
-    ucell = np.asarray(u)[forest.dofs_of(degree).cell2dof[cells]]
+    ucell = np.asarray(u)[forest.dofs_of(degree).host.cell2dof[cells]]
     phi = np.asarray(basis_at(forest.dim, degree, t)[0])   # (n_pts, nb)
     return np.sum(phi * ucell, axis=1)
 
@@ -130,7 +130,7 @@ def energy_norm_error_sq(forest: Forest, tables: ElementTables, u,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
 
     sel = slice(cells.start, cells.stop)
-    c2d = put(forest.dofs_of(tables.degree).cell2dof[sel], torch.int64)
+    c2d = forest.dofs_of(tables.degree).cell2dof[sel].to(dev)
     u_d = put(np.asarray(u, np.float64))
     return enorm_loop(u_d[c2d], put(forest.cell_h()[sel]),
                       put(forest.cell_lower()[sel]), put(tables.dphi),

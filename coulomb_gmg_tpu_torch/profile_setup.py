@@ -6,14 +6,16 @@ Counterpart of ``tools/profile_setup.py``: the float64 production run of
 ``8 n^3`` atoms (``production_scaling_config(n, dtype="float64")``, default
 n = 10) reaches its final mesh on ``--device`` (the card unless ``--device
 cpu``; without a card it raises), then the pieces of the stage run again,
-cold, on that forest on the host: the DoF numbering (mesh/dofs.py:
-``_cell_node_keys``, ``sort_unique_inverse``, the node positions,
-``_find_hanging``, ``_build_level``, ``build_dofs``), the constraints
-(fem/constraints.py) and the assembly plan (fem/assembly.py:
-``_expand_entries``, ``native.pattern``, ``build_plan``).  One line a
-piece with its wall seconds on the host clock, under the JAX tool's
-labels, and its last line: the pattern's nonzeros and the clean and dirty
-counts.
+cold, on that forest: the DoF numbering on the forest's device
+(mesh/dofs.py: ``_cell_node_keys``, the sorted unique keys and inverse,
+the node positions, ``_find_hanging``, ``_build_level``, ``build_dofs``;
+the card is synchronized around each piece), then on the host the
+constraints (fem/constraints.py, including the one host copy of the DoF
+arrays) and the assembly plan (fem/assembly.py: ``_expand_entries``,
+``native.pattern``, ``build_plan``).  One line a piece with its wall
+seconds on the host clock, under the JAX tool's labels where the piece is
+the same, and its last line: the pattern's nonzeros and the clean and
+dirty counts.
 """
 
 from __future__ import annotations
@@ -27,31 +29,34 @@ import numpy as np
 def profile(f, degree: int, boundary_fn) -> dict:
     """Time the pieces on forest ``f``; returns ``{"seconds": {label: s},
     "nnz", "clean", "n_cells", "dirty_m"}``."""
+    import torch
     from coulomb_gmg_tpu_torch.fem.assembly import _expand_entries, build_plan
     from coulomb_gmg_tpu_torch.fem.constraints import build_constraints
     from coulomb_gmg_tpu_torch.mesh.dofs import (_build_level,
                                                  _cell_node_keys,
-                                                 _find_hanging, build_dofs)
-    from coulomb_gmg_tpu_torch.mesh.forest import KeyIndex
+                                                 _find_hanging, _index,
+                                                 _numbering, build_dofs)
     from coulomb_gmg_tpu_torch.utils import native
 
     seconds = {}
+    sync = ((lambda: torch.cuda.synchronize(f.device))
+            if f.device.type == "cuda" else (lambda: None))
 
     def t(label, fn):
+        sync()
         t0 = time.perf_counter()
         out = fn()
+        sync()
         seconds[label.strip()] = dt = time.perf_counter() - t0
         print(f"{label:42s} {dt:8.2f} s", flush=True)
         return out
 
     p = degree
     ckeys = t("  _cell_node_keys", lambda: _cell_node_keys(f, p))
-    uniq_inv = t("  sort_unique_inverse (cell2dof)",
-                 lambda: native.sort_unique_inverse(ckeys.reshape(-1)))
-    kidx = KeyIndex.__new__(KeyIndex)
-    kidx.keys = uniq_inv[0]
-    t("  nkey_to_coords+boundary+positions", lambda: (
-        f.node_position(f.nkey_to_coords(kidx.keys, p), p)))
+    num = t("  unique keys, inverse, boundary (cell2dof)",
+            lambda: _numbering(f, ckeys, p))
+    kidx = _index(num[0])
+    t("  node positions", lambda: f.node_position(num[2], p))
     t("  _find_hanging", lambda: _find_hanging(f, kidx, p))
     t("  _build_level (all levels)",
       lambda: [_build_level(f, l, p) for l in range(f.n_levels)])
@@ -61,6 +66,7 @@ def profile(f, degree: int, boundary_fn) -> dict:
 
     cons = t("build_constraints", lambda: build_constraints(dofs,
                                                             boundary_fn))
+    dofs = dofs.host
     crow = t("  row_of(cell2dof)", lambda: cons.row_of(
         dofs.cell2dof.reshape(-1)).reshape(dofs.cell2dof.shape))
     clean = ~(crow >= 0).any(axis=1)

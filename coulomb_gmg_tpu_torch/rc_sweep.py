@@ -48,7 +48,7 @@ class Study:
         self.atoms = two_atom_pair()
         self.forest = f = Forest.uniform(3, reps, np.full(3, -2.0),
                                          5.0 / reps)
-        self.plan = build_plan(f.dofs.cell2dof, build_constraints(f.dofs,
+        self.plan = build_plan(f.dofs.host.cell2dof, build_constraints(f.dofs,
                                                                   None))
         self.tab_rhs = element_tables(3, 1, 5)
         self.h = f.cell_h()

@@ -43,14 +43,14 @@ IR_MAX_PASSES = 4
 
 def copy_maps(forest: Forest, dofs: DofInfo):
     """Per-level (global dof ids, level dof ids) copy maps: dofs on ACTIVE
-    level-l cells minus the refinement edge (copy_to_mg / copy_from_mg)."""
+    level-l cells minus the refinement edge (copy_to_mg / copy_from_mg);
+    int64 tensors on the forest's device."""
     out = []
     for ld in dofs.levels:
         _, active_index = forest.level_cells[ld.level]
-        act = active_index >= 0
-        ldofs = np.unique(ld.cell2dof[act])
+        ldofs = torch.unique(ld.cell2dof[active_index >= 0])
         ldofs = ldofs[~ld.interface[ldofs]]
-        gpos = np.searchsorted(dofs.keys, ld.keys[ldofs])
+        gpos = torch.searchsorted(dofs.keys, ld.keys[ldofs])
         out.append((gpos, ldofs))
     return out
 
@@ -159,7 +159,9 @@ class StencilGMG:
         self.n_pad = pad_n(n)
 
         def put(a, dt=None):
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            t = (a if isinstance(a, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(a)))
+            t = t.to(self.device)
             return t if dt is None else t.to(dt)
 
         tab = element_tables(dim, 1, 2)
@@ -198,7 +200,7 @@ class StencilGMG:
         cmaps = copy_maps(forest, dofs)
         cm_levels, src_lvl, src_idx = copy_map_tables(
             [g for g, _ in cmaps], [ld for _, ld in cmaps], self.n_pad,
-            nl_pads)
+            nl_pads, self.device)
         levels = []
         for l, ent in enumerate(ents):
             pr = prs[l]
@@ -212,15 +214,16 @@ class StencilGMG:
                         if ent["ifT_vals"] is not None else None),
                 "P": (pr[0], pr[1]) if pr is not None else None,
                 "R": (pr[2], pr[3]) if pr is not None else None,
-                "l2g": put(cm_levels[l][0]), "cmask": put(cm_levels[l][1]),
+                "l2g": cm_levels[l][0], "cmask": cm_levels[l][1],
             })
 
         # ---- system operands (matrix-free outer matvec)
-        c2d = dofs.cell2dof
+        c2d = put(dofs.cell2dof)
         C, nb = c2d.shape
         self.C_pad = C + 1            # one guaranteed pad cell (hsc = 0)
         dead = self.n_pad - 1
-        c2d_pad = np.full((self.C_pad, nb), dead, np.int64)
+        c2d_pad = torch.full((self.C_pad, nb), dead, dtype=torch.int64,
+                             device=self.device)
         c2d_pad[:C] = c2d
         h = forest.cell_h()
         hsc = np.zeros(self.C_pad)
@@ -243,7 +246,7 @@ class StencilGMG:
         Kt = 1
         if ncon and len(constraints.cols):
             Kt = max(int(np.bincount(constraints.cols).max()), 1)
-        c2dT = put(c2d_pad.T, torch.int32).contiguous()
+        c2dT = c2d_pad.T.to(torch.int32).contiguous()
         d2c = _build_d2c(c2dT, self.n_pad)
         hsc_d, kref_d = put(hsc), put(kref)
         (con_mask, ccf, cwf, g_full, conT_row, conT_w) = _build_con_tables(
@@ -271,22 +274,22 @@ class StencilGMG:
             interior = (coords0 > 0).all(1) & (coords0 < m0).all(1)
             dst = (put(d.S), put(d.lam),
                    *(put(a) for a in dst_tables(interior, nl_pads[0])))
-        self.ops = {"sys": sys, "levels": levels, "src_lvl": put(src_lvl),
-                    "src_idx": put(src_idx), "dst": dst, "dim": dim,
+        self.ops = {"sys": sys, "levels": levels, "src_lvl": src_lvl,
+                    "src_idx": src_idx, "dst": dst, "dim": dim,
                     "coarse_rtol": coarse_rtol,
                     "coarse_maxiter": coarse_maxiter}
         self.b64 = None
 
     def _build_level(self, t, nl_pad, T, dim, put, l):
-        coords = np.full((nl_pad, dim), t.side + 1, np.int32)
-        coords[: t.n] = t.coords
+        coords_d = torch.full((nl_pad, dim), t.side + 1, dtype=torch.int32,
+                              device=self.device)
+        coords_d[: t.n] = put(t.coords)
 
         def padb(a):
-            out = np.zeros(nl_pad, a.dtype)
-            out[: t.n] = a
-            return put(out)
+            out = torch.zeros(nl_pad, dtype=a.dtype, device=self.device)
+            out[: t.n] = put(a)
+            return out
 
-        coords_d = put(coords)
         want_if = l > 0 and bool(t.iface.any())
         out = build_level_ops(coords_d, padb(t.mask8), padb(t.elim),
                               padb(t.iface), padb(t.boundary), t.n, T,

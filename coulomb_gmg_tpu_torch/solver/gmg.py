@@ -60,23 +60,29 @@ def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def copy_map_tables(copy_global, copy_level, n_pad: int, nl_pads):
+def copy_map_tables(copy_global, copy_level, n_pad: int, nl_pads,
+                    device="cpu"):
     """Gather-form copy maps (copy_to_mg / copy_from_mg), as
-    coulomb_gmg_tpu/solver/tpu_gmg.py:copy_map_tables.  Returns per level
+    coulomb_gmg_tpu/solver/tpu_gmg.py:copy_map_tables, as tensors on
+    ``device`` (the maps may be tensors or numpy).  Returns per level
     (l2g (nl_pad,) with dead -> n_pad-1, cmask (nl_pad,) bool) plus the
-    copy-back resolution (src_lvl (n_pad,) with -1 = untouched, src_idx);
-    later levels overwrite earlier ones."""
+    copy-back resolution (src_lvl (n_pad,) int32 with -1 = untouched,
+    src_idx int32); later levels overwrite earlier ones."""
+    dev = torch.device(device)
     levels = []
-    src_lvl = np.full(n_pad, -1, np.int32)
-    src_idx = np.zeros(n_pad, np.int32)
+    src_lvl = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    src_idx = torch.zeros(n_pad, dtype=torch.int32, device=dev)
     for l, (gpos, ldofs) in enumerate(zip(copy_global, copy_level)):
-        l2g = np.full(nl_pads[l], n_pad - 1, np.int64)
-        l2g[ldofs] = gpos
-        cmask = np.zeros(nl_pads[l], bool)
+        gpos = torch.as_tensor(gpos, device=dev)
+        ldofs = torch.as_tensor(ldofs, device=dev)
+        l2g = torch.full((nl_pads[l],), n_pad - 1, dtype=torch.int64,
+                         device=dev)
+        l2g[ldofs] = gpos.to(torch.int64)
+        cmask = torch.zeros(nl_pads[l], dtype=torch.bool, device=dev)
         cmask[ldofs] = True
         levels.append((l2g, cmask))
         src_lvl[gpos] = l
-        src_idx[gpos] = ldofs
+        src_idx[gpos] = ldofs.to(torch.int32)
     return levels, src_lvl, src_idx
 
 

@@ -53,6 +53,7 @@ from coulomb_gmg_tpu_torch.solver.cg import cg
 def level_constraints(ld: LevelDofs) -> Constraints:
     """Homogeneous elimination set: refinement-edge + boundary level dofs
     (deal.II ``boundary_constraints[level]``, src/step-50.cc:853-864)."""
+    ld = ld.host
     rows = np.where(ld.interface | ld.boundary)[0].astype(np.int64)
     return Constraints(rows=rows,
                        indptr=np.zeros(len(rows) + 1, dtype=np.int64),
@@ -75,6 +76,7 @@ def build_interface_csr(plan: AssemblyPlan, ld: LevelDofs, k_cells,
     condition of src/step-50.cc:896-920.  The plan may cover only the
     level cells that touch the refinement edge; its pattern spans the full
     level dof numbering."""
+    ld = ld.host
     data, _ = assemble_np(plan, k_cells, None, dtype=np_dtype)
     rowids = np.repeat(np.arange(plan.pattern.n_rows),
                        np.diff(plan.pattern.indptr))
@@ -93,13 +95,14 @@ def build_prolongation(forest: Forest, dofs: DofInfo, l: int,
     2^dim-point stencil; ``MGTransferPrebuilt::build_matrices``,
     src/step-50.cc:957-958)."""
     dim = forest.dim
+    dofs = dofs.host
     p = dofs.degree
     ld, lc = dofs.levels[l], dofs.levels[l - 1]
-    level_ijk, _ = forest.level_cells[l]
+    level_ijk, _ = forest.level_cells_host[l]
     parent = level_ijk // 2
     child = (level_ijk & 1).astype(np.int64)            # (m, dim)
     par_key = forest.level_cell_key(l - 1, parent)
-    pc_ijk, _ = forest.level_cells[l - 1]
+    pc_ijk, _ = forest.level_cells_host[l - 1]
     pc_key = forest.level_cell_key(l - 1, pc_ijk)
     order = np.argsort(pc_key)
     ppos = order[np.searchsorted(pc_key[order], par_key)]
@@ -220,6 +223,7 @@ def _level_signature(forest: Forest, ld: LevelDofs) -> tuple:
     (finest-lattice coordinates shifted down by max_level - level), which
     stay put when refinement deepens the tree."""
     import hashlib
+    ld = ld.host
     coords = forest.nkey_to_coords(ld.keys, ld.degree)
     coords = coords >> (forest.max_level - ld.level)
     h = hashlib.sha1()
@@ -242,13 +246,14 @@ def build_gmg(forest: Forest, dofs: DofInfo, tables,
     unchanged levels reuse their matrices, smoothers and prolongations.
     smoother "none" builds no smoothers (the TpuGMG path makes its own)."""
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    dofs = dofs.host                 # assembled on the host
     matrices, interfaces, prolongs, smoothers = [], [], [], []
     copy_global, copy_level = [], []
     sigs = [_level_signature(forest, ld) if cache is not None else None
             for ld in dofs.levels]
 
     for l, ld in enumerate(dofs.levels):
-        level_ijk, active_index = forest.level_cells[l]
+        level_ijk, active_index = forest.level_cells_host[l]
         ck = (("lvl", sigs[l], sigs[l - 1] if l > 0 else None)
               if cache is not None else None)
         if ck is not None and ck in cache:

@@ -132,11 +132,12 @@ class TpuGMG:
                 del host_cache[k]       # superseded fine levels
 
         cm_levels, src_lvl, src_idx = copy_map_tables(
-            gmg.copy_global, gmg.copy_level, self.n_pad, nl_pads)
+            gmg.copy_global, gmg.copy_level, self.n_pad, nl_pads,
+            self.device)
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device)
         for lv, (l2g, cmask) in zip(levels, cm_levels):
-            lv["l2g"], lv["cmask"] = put(l2g), put(cmask)
+            lv["l2g"], lv["cmask"] = l2g, cmask
         dst = None
         if have_dst:
             m0 = forest.base_reps
@@ -148,7 +149,7 @@ class TpuGMG:
             dst = (put(d.S), put(d.lam),
                    *(put(a) for a in dst_tables(interior, nl_pads[0])))
         self.ops = {"sys": sys_csr.ell(self.n_pad, dtype), "levels": levels,
-                    "src_lvl": put(src_lvl), "src_idx": put(src_idx),
+                    "src_lvl": src_lvl, "src_idx": src_idx,
                     "dst": dst, "dim": forest.dim,
                     "coarse_rtol": coarse_rtol,
                     "coarse_maxiter": coarse_maxiter}

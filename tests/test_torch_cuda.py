@@ -304,6 +304,43 @@ def test_exact_gradient_kernel_matches_plain(card):
         gr.exact_gradient(p32.double(), atoms.double(), R_C)
 
 
+@pytest.mark.parametrize("degree", [1, 2])
+@pytest.mark.parametrize("dim, reps, seed", [(2, 12, 0), (3, 6, 1)])
+def test_topology_on_card_is_the_cpu_topology(card, dim, reps, seed, degree):
+    """Every topology function of the cycle (topology.topology_outputs:
+    DoF numbering, hanging pairs, level DoFs and cells, level topology,
+    copy maps, covering map, transfer, face plans, Kelly estimate with its
+    volume term, marking) returns tensors on the card equal to the CPU's:
+    integers and flags exactly, float64 arrays within rel 1e-14, on the
+    seeded forests of tests/test_torch_host.py."""
+    from coulomb_gmg_tpu_torch.mesh.forest import Forest
+    from coulomb_gmg_tpu_torch.topology import topology_outputs
+    f = Forest.uniform(dim, reps, np.zeros(dim), 1.0 / reps)
+    rng = np.random.default_rng(seed)
+    forests = [f]
+    for _ in range(2):
+        f = f.refine(rng.random(f.n_cells) < 0.2)
+        forests.append(f)
+    old, new = forests[-2], forests[-1]
+    u_old = rng.standard_normal(old.dofs_of(degree).n_dofs)
+    u_new = rng.standard_normal(new.dofs_of(degree).n_dofs)
+    rho = rng.standard_normal((new.n_cells, (degree + 1) ** dim))
+    cpu = topology_outputs(old.on("cpu"), new.on("cpu"), u_old, u_new,
+                           degree, rho)
+    got = topology_outputs(old.on(card), new.on(card), u_old, u_new, degree,
+                           rho)
+    assert list(got) == list(cpu)
+    for name, t in got.items():
+        ref = cpu[name]
+        assert t.device.type == "cuda", name
+        assert t.dtype == ref.dtype and t.shape == ref.shape, name
+        if t.is_floating_point() and ref.numel():
+            rel = (t.cpu() - ref).abs().max() / ref.abs().max()
+            assert rel <= 1e-14, (name, float(rel))
+        else:
+            assert torch.equal(t.cpu(), ref), name
+
+
 def test_slice_on_card_8_atoms(card):
     cfg = production_scaling_config(1, dtype="float32")
     sim = Simulation(cfg, atoms=nacl_lattice(1), device=card,

@@ -18,7 +18,8 @@ from coulomb_gmg_tpu.ops.stencil import (build_level_ops, level_topology,
 from coulomb_gmg_tpu.solver.tpu_gmg import _ell_mv_t
 from coulomb_gmg_tpu_torch.ops.ell import (ELL, SLICE, SlicedELL, Slices,
                                            ell_mv, ell_mv_cuda, ell_mv_plain)
-from torch_parity import adaptive_forest, random_csr, rel_err, t64
+from torch_parity import (adaptive_forest, jax_forest, random_csr, rel_err,
+                          t64)
 
 torch.set_num_threads(2)
 
@@ -27,7 +28,7 @@ torch.set_num_threads(2)
 def level_ops():
     """JAX-built (cols, evals, if_vals, ifT_vals) of every level of a
     refined 3D forest, as numpy."""
-    f = adaptive_forest(3)
+    f = jax_forest(adaptive_forest(3))
     dofs = f.dofs_of(1)
     T = jnp.asarray(stencil_table(3, element_tables(3, 1, 2)))
     out = []

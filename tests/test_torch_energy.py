@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from coulomb_gmg_tpu.mesh.forest import Forest
 from coulomb_gmg_tpu.ops.q1 import element_tables
 from coulomb_gmg_tpu.postprocess import energy as J
+from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch.postprocess import energy as T
-from torch_parity import adaptive_forest
+from torch_parity import adaptive_forest, jax_forest
 
 torch.set_num_threads(2)
 
@@ -31,15 +31,16 @@ def test_locate_cells_and_point_values_on_hanging_mesh():
     assert len(np.unique(f.level)) == 2
     pts = np.vstack([pos, f.cell_lower()[:5]])    # corners: ties resolved
     np.testing.assert_array_equal(T.locate_cells(f, pts),
-                                  J.locate_cells(f, pts))
+                                  J.locate_cells(jax_forest(f), pts))
     np.testing.assert_allclose(T.point_values(f, u, pts),
-                               J.point_values(f, u, pts), rtol=1e-12,
+                               J.point_values(jax_forest(f), u, pts),
+                               rtol=1e-12,
                                atol=1e-12)
 
 
 def test_electrostatic_energy_split():
     f, u, pos, q = _refined_case(4)
-    ref = J.electrostatic_energy(f, u, pos, q, 0.5)
+    ref = J.electrostatic_energy(jax_forest(f), u, pos, q, 0.5)
     out = T.electrostatic_energy(f, u, pos, q, 0.5)
     assert set(out) == set(ref)
     for k, v in ref.items():
@@ -62,9 +63,10 @@ def _enorm_case():
 def test_energy_norm_error_matches_jax(dtype, chunk):
     f, tab, u, pos, q = _enorm_case()
     if dtype == torch.float64:
-        ref, tol = J.energy_norm_error(f, tab, u, pos, q, 0.5), 1e-10
+        ref, tol = J.energy_norm_error(jax_forest(f), tab, u, pos, q,
+                                       0.5), 1e-10
     else:
-        ref, tol = J.energy_norm_error(f, tab, u, pos, q, 0.5,
+        ref, tol = J.energy_norm_error(jax_forest(f), tab, u, pos, q, 0.5,
                                        dtype=np.float32), 5e-4
     out = T.energy_norm_error(f, tab, u, pos, q, 0.5, "cpu", dtype=dtype,
                               chunk=chunk)
@@ -76,6 +78,6 @@ def test_energy_norm_error_on_hanging_mesh():
     the f32-vs-f64 bound of tests/test_kernels.py:230."""
     f, u, pos, q = _refined_case(5)
     tab = element_tables(3, 1, 2)
-    e64 = J.energy_norm_error(f, tab, u * 0.01, pos, q, 0.5)
+    e64 = J.energy_norm_error(jax_forest(f), tab, u * 0.01, pos, q, 0.5)
     e32 = T.energy_norm_error(f, tab, u * 0.01, pos, q, 0.5, "cpu")
     assert abs(e32 - e64) / e64 < 5e-4

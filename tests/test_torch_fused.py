@@ -45,7 +45,7 @@ from coulomb_gmg_tpu_torch.solver.cg import to_host
 from coulomb_gmg_tpu_torch.solver.fused import SteppedGMG
 from coulomb_gmg_tpu_torch.solver.tpu_gmg import TpuGMG
 from coulomb_gmg_tpu_torch.utils.logging import Pcout
-from torch_parity import (adaptive_forest, jax_stencil_gmg, padded,
+from torch_parity import (adaptive_forest, jax_forest, jax_stencil_gmg, padded,
                           refined_problem, rel_err, t64, torch_stencil_gmg)
 
 torch.set_num_threads(2)
@@ -317,12 +317,13 @@ def test_step16_coarse_cg_matches_jax():
     within rel 1e-12."""
     hier, hgmg, A, b = _step16_system(torch.float64)
     f, pat = hier["f"], hier["pat"]
-    jg = jbuild_gmg(f, hier["dofs"], hier["tab"],
+    jf = jax_forest(f)
+    jg = jbuild_gmg(jf, jf.dofs_of(1), hier["tab"],
                     coeff_fn=JP.step16_coefficient, smoother="none",
                     dtype=jnp.float64)
     A_j = JCSR.from_pattern(pat.indptr, pat.indices,
                             jnp.asarray(hier["data"]))
-    jt = JT.TpuGMG(jg, A_j, f, device=None, dtype=jnp.float64,
+    jt = JT.TpuGMG(jg, A_j, jf, device=None, dtype=jnp.float64,
                    use_dst=False)
     x_ref, k_ref, _, _ = jt.solve_fused(b, rtol=1e-10)
     tt = TpuGMG(hgmg, A, f, "cpu", dtype=torch.float64, use_dst=False)

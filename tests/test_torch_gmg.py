@@ -43,7 +43,7 @@ def problem():
 
 
 def test_hierarchy_has_hanging_nodes(problem):
-    assert problem["dofs"].hanging_pairs[0].size > 0
+    assert len(problem["dofs"].hanging_pairs[0]) > 0
     assert len(problem["gt"].ops["levels"]) == 3
 
 

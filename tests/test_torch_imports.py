@@ -30,7 +30,8 @@ for name in names + ["chip_smoke"]:
 for name in ("driver", "io.vtu", "io.gnuplot", "parallel.sharded",
              "parallel.sharded_gmg", "parallel.spmd", "parallel.multihost",
              "utils.platform", "solver.fused", "rc_sweep", "bench_kernels",
-             "profile_pieces", "profile_enorm", "profile_setup"):
+             "profile_pieces", "profile_enorm", "profile_setup",
+             "profile_topology"):
     assert "coulomb_gmg_tpu_torch." + name in sys.modules, name
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 ref = sorted(m for m in sys.modules if m == "coulomb_gmg_tpu"

@@ -22,7 +22,7 @@ from coulomb_gmg_tpu_torch.ops import smoothers as TSm
 from coulomb_gmg_tpu_torch.ops.q1 import element_tables
 from coulomb_gmg_tpu_torch.solver.cg import cg as tcg
 from coulomb_gmg_tpu_torch.solver.multigrid import build_gmg
-from torch_parity import adaptive_forest, rel_err, t64
+from torch_parity import adaptive_forest, jax_forest, rel_err, t64
 
 torch.set_num_threads(2)
 
@@ -44,14 +44,15 @@ def hier(request):
     f, coeff = _mesh(request.param)
     dofs = f.dofs_of(1)
     tab = element_tables(f.dim, 1, 2)
-    jg = jbuild_gmg(f, dofs, tab, coeff_fn=(JP.step16_coefficient if coeff
+    jf = jax_forest(f)
+    jg = jbuild_gmg(jf, jf.dofs_of(1), tab, coeff_fn=(JP.step16_coefficient if coeff
                                             else None),
                     smoother="ssor", dtype=jnp.float64)
     tg = build_gmg(f, dofs, tab, coeff_fn=(TP.step16_coefficient if coeff
                                            else None),
                    smoother="ssor", dtype=torch.float64, device="cpu")
     con = build_constraints(dofs, None)
-    return dict(f=f, dofs=dofs, jg=jg, tg=tg, con=con)
+    return dict(f=f, dofs=dofs, jg=jg, tg=tg, con=con, jf=jf)
 
 
 def test_hierarchy_matrices_equal_jax(hier):
@@ -79,12 +80,14 @@ def test_smoothers_match_jax(hier, smoother):
     l = len(hier["tg"].matrices) - 1
     A_t, A_j = hier["tg"].matrices[l], hier["jg"].matrices[l]
     ld = hier["dofs"].levels[l]
-    make = {"jacobi": lambda m, A: m.make_jacobi(A, 0.6),
-            "ssor": lambda m, A: m.make_ssor_host(A, 0.5),
-            "mc_ssor": lambda m, A: m.make_mc_ssor(
-                A, m.lattice_color(hier["f"], ld), 0.5),
-            "chebyshev": lambda m, A: m.make_chebyshev(A)}[smoother]
-    pt, pj = make(TSm, A_t), make(JSm, A_j)
+    jld = hier["jf"].dofs_of(1).levels[l]
+    make = {"jacobi": lambda m, A, f, ld: m.make_jacobi(A, 0.6),
+            "ssor": lambda m, A, f, ld: m.make_ssor_host(A, 0.5),
+            "mc_ssor": lambda m, A, f, ld: m.make_mc_ssor(
+                A, m.lattice_color(f, ld), 0.5),
+            "chebyshev": lambda m, A, f, ld: m.make_chebyshev(A)}[smoother]
+    pt = make(TSm, A_t, hier["f"], ld)
+    pj = make(JSm, A_j, hier["jf"], jld)
     rng = np.random.default_rng(2)
     r, u = rng.standard_normal((2, A_t.n_rows))
     assert rel_err(pt(t64(r)).numpy(), np.asarray(pj(jnp.asarray(r)))) \
@@ -97,7 +100,7 @@ def test_smoothers_match_jax(hier, smoother):
                    np.asarray(sj.smooth(jnp.asarray(u), jnp.asarray(r)))) \
         < 1e-12
     np.testing.assert_array_equal(TSm.lattice_color(hier["f"], ld),
-                                  JSm.lattice_color(hier["f"], ld))
+                                  JSm.lattice_color(hier["jf"], jld))
 
 
 def test_host_ssor_counts_its_applications(hier):

@@ -221,7 +221,7 @@ def test_profile_setup_counts_match_jax(dim, reps, seed):
 @pytest.mark.parametrize("module, argv", [
     ("rc_sweep", ["--reps", "2"]), ("bench_kernels", SMALL),
     ("profile_pieces", ["--n", "1"]), ("profile_enorm", ["--atoms", "8"]),
-    ("profile_setup", ["1"])])
+    ("profile_setup", ["1"]), ("profile_topology", ["--n", "1"])])
 def test_entry_points_need_the_card(module, argv):
     """Without ``--device cpu`` each entry point takes the card, and raises
     where there is none."""

@@ -11,7 +11,7 @@ import torch
 from coulomb_gmg_tpu.ops import stencil as J
 from coulomb_gmg_tpu.ops.q1 import element_tables
 from coulomb_gmg_tpu_torch.ops import stencil as T
-from torch_parity import adaptive_forest, rel_err, t64
+from torch_parity import adaptive_forest, jax_forest, rel_err, t64
 
 torch.set_num_threads(2)
 
@@ -28,7 +28,7 @@ def _close(out, ref, rtol):
 @pytest.fixture(scope="module", params=[2, 3])
 def hierarchy(request):
     dim = request.param
-    f = adaptive_forest(dim)
+    f = jax_forest(adaptive_forest(dim))
     dofs = f.dofs_of(1)
     tab = element_tables(dim, 1, 2)
     topos = [J.level_topology(f, ld, l) for l, ld in enumerate(dofs.levels)]

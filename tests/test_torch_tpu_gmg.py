@@ -26,7 +26,7 @@ from coulomb_gmg_tpu_torch.ops.spmv import CSR
 from coulomb_gmg_tpu_torch.solver import tpu_gmg as TT
 from coulomb_gmg_tpu_torch.solver.multigrid import build_gmg
 from coulomb_gmg_tpu_torch.solver.tpu_cg import tpu_cg_solve
-from torch_parity import adaptive_forest, rel_err
+from torch_parity import adaptive_forest, jax_forest, rel_err
 
 torch.set_num_threads(2)
 
@@ -55,15 +55,16 @@ def route(request):
                                                    dtype=np.float32),
                           None, dtype=np.float32)
     pat = plan.pattern
-    jg = jbuild_gmg(f, dofs, tab, coeff_fn=(JP.step16_coefficient if step16
-                                            else None),
+    jf = jax_forest(f)
+    jg = jbuild_gmg(jf, jf.dofs_of(1), tab,
+                    coeff_fn=(JP.step16_coefficient if step16 else None),
                     smoother="none", dtype=jnp.float32)
     tg = build_gmg(f, dofs, tab, coeff_fn=(TP.step16_coefficient if step16
                                            else None),
                    smoother="none", dtype=torch.float32, device="cpu")
     A_j = JCSR.from_pattern(pat.indptr, pat.indices, jnp.asarray(data))
     A_t = CSR.from_pattern(pat.indptr, pat.indices, data, device="cpu")
-    jt = JT.TpuGMG(jg, A_j, f, device=None, dtype=jnp.float32,
+    jt = JT.TpuGMG(jg, A_j, jf, device=None, dtype=jnp.float32,
                    use_dst=not step16)
     tt = TT.TpuGMG(tg, A_t, f, "cpu", dtype=torch.float32,
                    use_dst=not step16)

@@ -4,8 +4,11 @@ Inputs are made with numpy from a seed and handed to both packages: the JAX
 reference (coulomb_gmg_tpu, on the CPU with x64, as conftest.py sets it up)
 and the PyTorch port (coulomb_gmg_tpu_torch, on the CPU, where every kernel
 wrapper runs its plain PyTorch version).  Meshes, atoms and constraints are
-built with the port's host modules (tests/test_torch_host.py holds them
-equal to the JAX package's); the JAX functions take them as they are.
+built with the port's modules (tests/test_torch_host.py and
+tests/test_torch_topology.py hold them equal to the JAX package's).  The
+port's DoF arrays are tensors, so a JAX function that derives topology from
+a forest gets the JAX package's own forest of the same cells
+(:func:`jax_forest`); constraints and numpy inputs go to both as they are.
 """
 
 from __future__ import annotations
@@ -55,6 +58,13 @@ def adaptive_forest(dim: int = 3, reps: int = 6, cycles: int = 2,
     return f
 
 
+def jax_forest(f: Forest):
+    """The JAX package's Forest of the same cells as the port's ``f``."""
+    from coulomb_gmg_tpu.mesh.forest import Forest as JForest
+    return JForest(dim=f.dim, base_reps=f.base_reps, lower=f.lower, h0=f.h0,
+                   level=f.level, ijk=f.ijk)
+
+
 def tile_setup(n: int = 1, vac: int = 3, refine_seed=None):
     """NaCl atoms and the production base mesh around them (the setup of
     tests/test_tile_density.py); ``refine_seed`` refines ~10% of the cells
@@ -89,10 +99,13 @@ def refined_problem(seed: int = 0):
 
 
 def jax_stencil_gmg(f, dofs, con):
-    """The JAX StencilGMG in float64 on the CPU."""
+    """The JAX StencilGMG in float64 on the CPU, on the JAX twin of the
+    port's forest ``f`` (``dofs`` are the port's, the same numbering)."""
     import jax.numpy as jnp
     from coulomb_gmg_tpu.solver.device_gmg import StencilGMG
-    return StencilGMG(f, dofs, con, device=None, dtype=jnp.float64)
+    jf = jax_forest(f)
+    return StencilGMG(jf, jf.dofs_of(dofs.degree), con, device=None,
+                      dtype=jnp.float64)
 
 
 def torch_stencil_gmg(f, dofs, con):
