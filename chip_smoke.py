@@ -876,6 +876,7 @@ def phase_host_f64():
     from coulomb_gmg_tpu_torch.driver import Simulation
     from coulomb_gmg_tpu_torch.ops import ell
     from coulomb_gmg_tpu_torch.ops.smoothers import HostSSOR
+    from coulomb_gmg_tpu_torch.utils.timer import RUNS
 
     cfg = production_scaling_config(ATOMS_N, dtype="float64",
                                     device_operators="off")
@@ -894,13 +895,15 @@ def phase_host_f64():
               f"{r['n_dofs']} levels {len(r['dofs_by_level'])} cg "
               f"{r['cg_iterations']} residual {r['residual']:.3e} (|b| "
               f"{r['l2_rhs']:.6e}) coarse CG {len(cc)} V-cycles, "
-              f"iterations {cc}, {r['coarse_s'] or 0.0:.2f} s; s: "
+              f"iterations {cc}; s: "
               f"{stage_text(r)}", flush=True)
     ssor = {id(e[3].precond): e[3].precond for e in sim._gmg_cache.values()
             if e[3] is not None and isinstance(e[3].precond, HostSSOR)}
-    calls = sum(h.calls for h in ssor.values())
-    solve_s = sum(h.solve_s for h in ssor.values())
-    copy_s = sum(h.copy_s for h in ssor.values())
+    spans, solve_counts = RUNS[-1]["spans"], RUNS[-1]["counters"]["Solve"]
+    calls = spans["smoother.ssor_host"]["calls"]
+    solve_s = spans["smoother.ssor_host"]["total_s"]
+    coarse_s = spans["solve.coarse"]["total_s"]
+    reads_s = solve_counts.get("host_read_ns", 0) / 1e9
     peak = torch.cuda.max_memory_allocated() / 2**30
     sys_ell = host_f64_system(sim)
     ell_csr_levels(sim.gmg, "host f64")
@@ -908,8 +911,10 @@ def phase_host_f64():
     print(f"[host f64] wall {wall:.2f} s; CG {cg} (earlier "
           f"{EARLIER_HOST_F64_CG}); launches {launches} "
           f"(ELL float64 {f64}); SSOR {calls} applications on "
-          f"{len(ssor)} levels: host solves {solve_s:.2f} s, copies "
-          f"{copy_s:.2f} s; peak device memory {peak:.2f} GiB over the run, "
+          f"{len(ssor)} levels: host solves {solve_s:.2f} s; coarse CG "
+          f"{coarse_s:.2f} s; Solve's host reads "
+          f"{solve_counts.get('host_reads', 0)} ({reads_s:.2f} s, waits "
+          f"included); peak device memory {peak:.2f} GiB over the run, "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the "
           f"ELL checks after it", flush=True)
     cells = [r["n_cells"] for r in res]

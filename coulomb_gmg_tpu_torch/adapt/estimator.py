@@ -26,6 +26,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.dofs import HostView
 from coulomb_gmg_tpu_torch.mesh.forest import Forest, active_level_index
 from coulomb_gmg_tpu_torch.ops.q1 import face_tables, _basis_at
@@ -281,7 +282,7 @@ def _products(x: torch.Tensor, G) -> torch.Tensor:
     """``x @ G.T`` for x (m, k) and a numpy table G (r, k), each output
     summing its k terms in index order (no reduction of unspecified
     order)."""
-    G = torch.from_numpy(np.ascontiguousarray(G, np.float64)).to(x.device)
+    G = upload(np.ascontiguousarray(G, np.float64), x.device)
     acc = x[:, None, 0] * G[None, :, 0]
     for j in range(1, G.shape[1]):
         acc = acc + x[:, None, j] * G[None, :, j]
@@ -340,11 +341,10 @@ def estimate(forest: Forest, cell2dof, u, rho_q,
         plan = build_face_plan(forest)
     grads, fweights, sub_grads = _face_grad_tables(dim, degree, n_q1)
 
-    f64 = lambda a: (a if isinstance(a, torch.Tensor)
-                     else torch.from_numpy(np.asarray(a))).to(
-                         dev, torch.float64)
-    c2d = (cell2dof if isinstance(cell2dof, torch.Tensor)
-           else torch.from_numpy(np.asarray(cell2dof))).to(dev)
+    f64 = lambda a: (a.to(dev, torch.float64) if isinstance(a, torch.Tensor)
+                     else upload(np.asarray(a), dev, torch.float64))
+    c2d = (cell2dof.to(dev) if isinstance(cell2dof, torch.Tensor)
+           else upload(np.asarray(cell2dof), dev))
     ucell = f64(u)[c2d]                            # (n_cells, nb)
     h = forest.h0 / (torch.ones_like(forest.level_t)
                      << forest.level_t).to(torch.float64)

@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.forest import (
     Forest, KeyIndex, active_level_index, corner_offsets, node_offsets,
     to_host)
@@ -86,9 +87,9 @@ def transfer_solution(old: Forest, new: Forest, u_old,
         omap = old_cell_of_new(old, new)
     dev = omap.device
     odofs, ndofs = old.dofs_of(degree), new.dofs_of(degree)
-    u = (u_old if isinstance(u_old, torch.Tensor)
-         else torch.from_numpy(np.asarray(u_old, np.float64)))
-    u_cell_old = u.to(dev, torch.float64)[odofs.cell2dof[omap]]  # (n_new, nb)
+    u = (u_old.to(dev, torch.float64) if isinstance(u_old, torch.Tensor)
+         else upload(np.asarray(u_old, np.float64), dev, torch.float64))
+    u_cell_old = u[odofs.cell2dof[omap]]                          # (n_new, nb)
     off = node_offsets(dim, degree).astype(np.float64) / degree  # (nb, dim)
     nb = (degree + 1) ** dim
 
@@ -106,7 +107,7 @@ def transfer_solution(old: Forest, new: Forest, u_old,
         # t = (octant + node_offset) / 2
         corner = np.array([(o >> d) & 1 for d in range(dim)], np.float64)
         t = (corner[None, :] + off) * 0.5            # (nb, dim)
-        W = torch.from_numpy(_basis_at(dim, degree, t)[0]).to(dev)
+        W = upload(_basis_at(dim, degree, t)[0], dev)
         uc = u_cell_old[grp]
         acc = uc[:, :1] * W[:, 0][None, :]
         for k in range(1, nb):

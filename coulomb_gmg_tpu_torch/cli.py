@@ -20,7 +20,8 @@ kernel; ``--no-fused-solve`` sets ``solve_fused = False``, as the JAX CLI
 does: every device solve then runs its eager loop, one host read per CG
 iteration, in place of the stepped solve of solver/fused.py; ``--profile
 DIR`` writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``
-(Chrome / Perfetto format).
+(Chrome / Perfetto format), the program's spans (utils/timer.py) among its
+host events.
 
 ``--distributed`` joins a ``torch.distributed`` process group before the
 run, from the environment that ``torchrun`` sets (``MASTER_ADDR``,

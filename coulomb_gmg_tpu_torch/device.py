@@ -4,12 +4,16 @@ Counterpart of coulomb_gmg_tpu/utils/platform.py.  The entry points run on
 the card unless the caller asks for the CPU, and a CUDA device that is not
 there is an error, not a silent fall back to the CPU.  Float32 work runs
 with TF32 off, the Hopper analogue of the TPU's bf16 matmul default that
-cost 4.6e-3 of true residual in the JAX solve.
+cost 4.6e-3 of true residual in the JAX solve.  Host arrays reach a
+device through :func:`upload`, which counts them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from coulomb_gmg_tpu_torch.utils.timer import count
 
 
 def require_cuda() -> torch.device:
@@ -38,3 +42,14 @@ def resolve(device) -> torch.device:
             dev = torch.device("cuda", torch.cuda.current_device())
     set_precision()
     return dev
+
+
+def upload(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """``torch.from_numpy(a).to(device, dtype)``, counted: one to the open
+    run's ``uploads`` and ``a.nbytes`` to its ``upload_bytes``
+    (utils/timer.py), a CPU destination standing for the card."""
+    t = torch.from_numpy(a)
+    out = t.to(device) if dtype is None else t.to(device, dtype)
+    count("uploads")
+    count("upload_bytes", a.nbytes)
+    return out

@@ -48,6 +48,8 @@ solution transfer (adapt/transfer.py), the level topology and copy maps
 of the device GMG (ops/stencil.py, solver/device_gmg.py), and the face
 plans, Kelly estimate and marking (adapt/estimator.py).  Host consumers
 read those arrays through one host copy each (``DofInfo.host``).
+``Simulation.timer`` (utils/timer.py) is the run's tracer: the stages and
+the spans of the layers below them, and the counted uploads and host reads.
 ``write_vtu`` writes one VTU
 piece per shard, a PVTU and a VisIt record per cycle (io/vtu.py), and the
 gnuplot grid scripts in 2D (io/gnuplot.py).
@@ -56,7 +58,6 @@ gnuplot grid scripts in 2D (io/gnuplot.py).
 from __future__ import annotations
 
 import os
-import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -67,7 +68,7 @@ from coulomb_gmg_tpu_torch.adapt.estimator import (
 from coulomb_gmg_tpu_torch.adapt.transfer import (
     old_cell_of_new, transfer_cell_mask, transfer_solution)
 from coulomb_gmg_tpu_torch.config import Config
-from coulomb_gmg_tpu_torch.device import resolve
+from coulomb_gmg_tpu_torch.device import resolve, upload
 from coulomb_gmg_tpu_torch.fem.assembly import assemble_np, build_plan
 from coulomb_gmg_tpu_torch.fem.constraints import (build_constraints,
                                                    distribute, set_zero)
@@ -82,7 +83,7 @@ from coulomb_gmg_tpu_torch.mesh.forest import Forest, to_host
 from coulomb_gmg_tpu_torch.ops.q1 import element_tables
 from coulomb_gmg_tpu_torch.utils.logging import Pcout, sci10, fix10
 from coulomb_gmg_tpu_torch.utils.platform import world_size
-from coulomb_gmg_tpu_torch.utils.timer import TimerOutput
+from coulomb_gmg_tpu_torch.utils.timer import TimerOutput, span, spanned
 from coulomb_gmg_tpu_torch.models import problems as P
 from coulomb_gmg_tpu_torch.ops.density import (
     atom_masks, cell_quad_points, compute_density, density_bruteforce)
@@ -98,7 +99,7 @@ from coulomb_gmg_tpu_torch.parallel.spmd import (SpmdContext,
                                                  electrostatic_energy_spmd)
 from coulomb_gmg_tpu_torch.postprocess.energy import (electrostatic_energy,
                                                       energy_norm_error)
-from coulomb_gmg_tpu_torch.solver.cg import cg
+from coulomb_gmg_tpu_torch.solver.cg import cg, host_array, host_float
 from coulomb_gmg_tpu_torch.solver.fused import stepped_cg
 from coulomb_gmg_tpu_torch.solver.device_gmg import (StencilGMG,
                                                      solve_refined_device)
@@ -174,19 +175,17 @@ class Simulation:
 
     @contextmanager
     def _stage(self, name: str):
-        """Timed pipeline stage; device work is synchronized at its end so
-        the seconds are the stage's own."""
-        t0 = time.time()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.time() - t0
-        self.timer.totals[name] += dt
-        self.timer.calls[name] += 1
-        self._stages[name] = self._stages.get(name, 0.0) + dt
+        """Timed pipeline stage, a span of the run's tracer; device work is
+        synchronized at its end so the seconds are the stage's own."""
+        sync = ((lambda: torch.cuda.synchronize(self.device))
+                if self.device.type == "cuda" else None)
+        with self.timer.scope(name, sync) as stage:
+            yield
+        self._stages[name] = self._stages.get(name, 0.0) + stage.seconds
 
     # ------------------------------------------------------------ meshing
 
+    @spanned("topology.mesh")
     def make_initial_mesh(self) -> Forest:
         cfg = self.cfg
         if cfg.problem == "Step16":
@@ -283,28 +282,31 @@ class Simulation:
                 f, self.tab_rhs.points, at.positions, at.charges, cfg.r_c,
                 cut, self.device, c_pad=c_pad)
         if self.dtype == torch.float32 and not cfg.flag_rhs_assembly:
-            return density_bruteforce(f, self.tab_rhs.points, at.positions,
-                                      at.charges, cfg.r_c, self.device,
-                                      c_pad=c_pad)
+            with span("density.kernel"):
+                return density_bruteforce(f, self.tab_rhs.points,
+                                          at.positions, at.charges, cfg.r_c,
+                                          self.device, c_pad=c_pad)
         # runs of the tpu_cg route evaluate it in float32 in either
         # precision, as the JAX driver does; every other run in float64
         dt = torch.float32 if self.use_tpu_cg else torch.float64
-        rho = compute_density(f, self.tab_rhs.points, at.positions,
-                              at.charges, cfg.r_c, self.device, mask=mask,
-                              lists=lists, dtype=dt)
+        with span("density.kernel"):
+            rho = compute_density(f, self.tab_rhs.points, at.positions,
+                                  at.charges, cfg.r_c, self.device,
+                                  mask=mask, lists=lists, dtype=dt)
         return torch.cat([rho, rho.new_zeros(1, rho.shape[1])])
 
     def setup(self):
         cfg = self.cfg
         f = self.forest
-        with self._stage("Setup system"):
+        with self._stage("Setup system"), span("topology.dofs"):
             dofs = f.dofs_of(cfg.degree)
         if self.lammpsinput:
             # the locality of the JAX host path: a dense mask up to 64
             # atoms, padded lists above (the tile plan makes its own)
             if (cfg.flag_rhs_assembly and not self._tiles()
                     and self.mask is None and self.lists is None):
-                with self._stage("RHS assembly optimization"):
+                with self._stage("RHS assembly optimization"), \
+                        span("density.plan"):
                     cut = cfg.nonzero_radius * cfg.r_c
                     if self.atoms.n > 64:
                         self.lists, _ = atom_lists(f, self.atoms.positions,
@@ -327,7 +329,7 @@ class Simulation:
             rho = (P.step16_rhs(pts) if cfg.problem == "Step16"
                    else P.gaussian_rhs(pts, cfg.r_c))
             self.rho = torch.cat([rho, rho.new_zeros(1, rho.shape[1])])
-        with self._stage("Setup system"):
+        with self._stage("Setup system"), span("topology.constraints"):
             self.constraints = build_constraints(dofs, self.boundary_fn())
             self.plan = (None if self.device_ops
                          else build_plan(dofs.host.cell2dof,
@@ -352,7 +354,7 @@ class Simulation:
                 self.rhs = self.gmg.assemble_rhs(self.rho.to(self.device),
                                                  self.tab_rhs)
             return
-        with self._stage("Assemble system"):
+        with self._stage("Assemble system"), span("assembly.csr"):
             np_dtype = np.float32 if self.dtype == torch.float32 \
                 else np.float64
             h = f.cell_h()
@@ -447,23 +449,24 @@ class Simulation:
             if self.device_ops:
                 self._solve_device_ops()
                 return
-            x, k, res0, resf = self._solve_assembled()
+            with span("solve.cg"):
+                x, k, res0, resf = self._solve_assembled()
             self.cg_passes = None
-            # the true residual of the returned solution, float64
-            A64 = self.A.ell(dtype=torch.float64)
-            xd = torch.from_numpy(x).to(self.device)
-            bd = torch.from_numpy(np.asarray(self.rhs, np.float64)).to(
-                self.device)
-            self.residual = float(torch.linalg.vector_norm(
-                bd - ell_mv(*A64, xd)))
-            absd = np.abs(self.A.data_np()).astype(np.float64)
-            colsum = np.bincount(self.A.indices, weights=absd,
-                                 minlength=self.A.n_cols)
-            mat = {"l1_mat": float(colsum.max()),
-                   "linf_mat": float(np.add.reduceat(
-                       absd, self.A.indptr[:-1]).max()),
-                   "fro_mat": float(np.sqrt((absd ** 2).sum()))}
-            self._log_solve(np.asarray(self.rhs), x, k, res0, resf, mat)
+            with span("solve.check"):
+                # the true residual of the returned solution, float64
+                A64 = self.A.ell(dtype=torch.float64)
+                xd = upload(x, self.device)
+                bd = upload(np.asarray(self.rhs, np.float64), self.device)
+                self.residual = host_float(torch.linalg.vector_norm(
+                    bd - ell_mv(*A64, xd)))
+                absd = np.abs(self.A.data_np()).astype(np.float64)
+                colsum = np.bincount(self.A.indices, weights=absd,
+                                     minlength=self.A.n_cols)
+                mat = {"l1_mat": float(colsum.max()),
+                       "linf_mat": float(np.add.reduceat(
+                           absd, self.A.indptr[:-1]).max()),
+                       "fro_mat": float(np.sqrt((absd ** 2).sum()))}
+                self._log_solve(np.asarray(self.rhs), x, k, res0, resf, mat)
 
     def _solve_device_ops(self):
         """The device-operator solve (the JAX driver's solve,
@@ -471,7 +474,8 @@ class Simulation:
         for float32 below the float32 CG floor (``cg_rtol < 5e-7``), else
         one GMG-CG at ``cg_rtol``; the true float64 residual either way."""
         cfg, g = self.cfg, self.gmg
-        b = self.rhs[: g.n].cpu().numpy()
+        with span("solve.check"):
+            b = host_array(self.rhs[: g.n])
         x0 = (self.solution if self.solution is not None
               and len(self.solution) == g.n else None)
         if self.dtype == torch.float32 and cfg.cg_rtol < 5e-7:
@@ -482,17 +486,20 @@ class Simulation:
             b64 = g.b64
             x0w = torch.zeros_like(b64)
             if x0 is not None:
-                x0w[: g.n] = torch.from_numpy(np.asarray(x0, np.float64)).to(
-                    b64.device)
-            xw, k, res0, resf = g.solve(
-                b64.to(g.dtype), x0w.to(g.dtype), rtol=cfg.cg_rtol,
-                maxiter=cfg.cg_max_iters,
-                rhs_norm=float(torch.linalg.vector_norm(b64)))
-            x64 = xw.to(torch.float64)
-            self.residual = float(torch.linalg.vector_norm(g.defect64(x64)))
-            x = x64[: g.n].cpu().numpy()
+                x0w[: g.n] = upload(np.asarray(x0, np.float64), b64.device)
+            with span("solve.cg"):
+                xw, k, res0, resf = g.solve(
+                    b64.to(g.dtype), x0w.to(g.dtype), rtol=cfg.cg_rtol,
+                    maxiter=cfg.cg_max_iters,
+                    rhs_norm=host_float(torch.linalg.vector_norm(b64)))
+            with span("solve.check"):
+                x64 = xw.to(torch.float64)
+                self.residual = host_float(
+                    torch.linalg.vector_norm(g.defect64(x64)))
+                x = host_array(x64[: g.n])
             self.cg_passes = [k]
-        self._log_solve(b, x, k, res0, resf)
+        with span("solve.check"):
+            self._log_solve(b, x, k, res0, resf)
 
     def _solve_assembled(self):
         """The routes of the host-assembled system (the JAX driver's solve,
@@ -529,8 +536,7 @@ class Simulation:
                 rtol=cfg.cg_rtol, maxiter=cfg.cg_max_iters * 10,
                 device=self.device, dtype=self.dtype, fused=cfg.solve_fused)
             return x.astype(np.float64), k, res0, resf
-        put = lambda a: torch.from_numpy(np.asarray(a)).to(self.device,
-                                                           self.dtype)
+        put = lambda a: upload(np.asarray(a), self.device, self.dtype)
         # the host SSOR of the GMG route runs in the host loop, as JAX's
         # cg(host=True); Jacobi in the stepped solve, as JAX's host=False
         if cfg.preconditioner == "GMG":
@@ -542,7 +548,7 @@ class Simulation:
                     x0=put(x0) if x0 is not None else None, precond=precond,
                     tol=cfg.cg_rtol * float(np.linalg.norm(rhs)),
                     maxiter=cfg.cg_max_iters)
-        return (res.x.cpu().numpy().astype(np.float64), res.iterations,
+        return (host_array(res.x).astype(np.float64), res.iterations,
                 res.initial_residual, res.final_residual)
 
     def _solve_spmd(self, rhs, x0):
@@ -578,7 +584,8 @@ class Simulation:
         cfg = self.cfg
         with self._stage("Estimate error and mark cells"):
             if self._face_plan is None:
-                self._face_plan = build_face_plan(self.forest)
+                with span("estimate.face_plan"):
+                    self._face_plan = build_face_plan(self.forest)
             dofs = self.forest.dofs_of(cfg.degree)
             if (self.spmd is not None and not cfg.estimator_volume_term
                     and cfg.degree == 1):
@@ -700,20 +707,24 @@ class Simulation:
         with self._stage("Refine, solution transfer and sending atoms "
                          "list to child cells"):
             old = self.forest
-            new = old.refine(self.flags)
-            omap = old_cell_of_new(old, new)
-            # children inherit the parent's locality (the p4est
-            # attach/unpack of src/step-50.cc:441-456)
-            if self.mask is not None:
-                self.mask = transfer_cell_mask(old, new, self.mask, omap=omap)
-            if self.lists is not None:
-                self.lists = transfer_cell_mask(old, new, self.lists,
-                                                omap=omap)
-            u_new = to_host(transfer_solution(old, new, self.solution,
-                                              degree=cfg.degree, omap=omap))
+            with span("topology.refine"):
+                new = old.refine(self.flags)
+            with span("topology.transfer"):
+                omap = old_cell_of_new(old, new)
+                # children inherit the parent's locality (the p4est
+                # attach/unpack of src/step-50.cc:441-456)
+                if self.mask is not None:
+                    self.mask = transfer_cell_mask(old, new, self.mask,
+                                                   omap=omap)
+                if self.lists is not None:
+                    self.lists = transfer_cell_mask(old, new, self.lists,
+                                                    omap=omap)
+                u_new = to_host(transfer_solution(
+                    old, new, self.solution, degree=cfg.degree, omap=omap))
             if self._face_plan is not None:
-                self._face_plan = update_face_plan(old, new, self._face_plan,
-                                                   omap)
+                with span("estimate.face_plan"):
+                    self._face_plan = update_face_plan(old, new,
+                                                       self._face_plan, omap)
             self.forest = new
             self.solution = u_new
         self.setup()
@@ -722,6 +733,12 @@ class Simulation:
     # ---------------------------------------------------------------- run
 
     def run(self):
+        """The adaptive cycles: one run of the tracer (``self.timer``),
+        whose summary joins utils/timer.py:RUNS when it ends."""
+        with self.timer.run():
+            return self._run()
+
+    def _run(self):
         cfg = self.cfg
         pc = self.pcout
         pc(f"Running with PyTorch on {self.device}")
@@ -745,6 +762,7 @@ class Simulation:
             else:
                 self.refine()
                 pc(f"   Number of active cells:       {self.forest.n_cells}")
+            self.timer.cells.append(self.forest.n_cells)
             dofs = self.forest.dofs_of(cfg.degree)
             by_level = ", ".join(str(ld.n_dofs) for ld in dofs.levels)
             pc(f"   Number of degrees of freedom: {dofs.n_dofs} "
@@ -782,7 +800,6 @@ class Simulation:
             # the host-loop GMG route's coarse CG, per V-cycle
             cyc["coarse_cg"] = list(getattr(self.gmg, "coarse_iterations",
                                             [])) or None
-            cyc["coarse_s"] = getattr(self.gmg, "coarse_seconds", None)
             cyc["stages"] = dict(self._stages)
             self.results.append(cyc)
             if cfg.checkpoint_dir:

@@ -27,6 +27,7 @@ from typing import List
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.forest import (Forest, KeyIndex, node_offsets,
                                                to_host)
 
@@ -129,7 +130,7 @@ def _cell_node_keys(forest: Forest, degree: int) -> torch.Tensor:
     element-table basis order."""
     lvl, ijk = forest.level_t, forest.ijk_t
     s = torch.ones_like(lvl) << (forest.max_level - lvl)
-    off = torch.from_numpy(node_offsets(forest.dim, degree)).to(lvl.device)
+    off = upload(node_offsets(forest.dim, degree), lvl.device)
     # node coord = cell base (fine lattice) * degree + offset * cell size
     nodes = (ijk[:, None, :] * degree + off[None, :, :]) * s[:, None, None]
     return forest.nkey(nodes, degree)
@@ -283,13 +284,12 @@ def _find_hanging(forest: Forest, kidx: KeyIndex, degree: int = 1):
         # (candidate, cell) pairs present in the dof set, candidate-major
         e, i = torch.nonzero(kidx.contains(cands), as_tuple=True)
         c = kidx.lookup(torch.stack(facets)[
-            torch.tensor(facet, device=dev)[e], i])      # (n, k)
+            upload(np.asarray(facet, np.int64), dev)[e], i])  # (n, k)
         k = c.shape[1]
         rows.append(kidx.lookup(cands[e, i])[:, None].expand(-1, k)
                     .reshape(-1))
         cols.append(c.reshape(-1))
-        wts.append(torch.tensor(np.asarray(ws, np.float64),
-                                device=dev)[e].reshape(-1))
+        wts.append(upload(np.asarray(ws, np.float64), dev)[e].reshape(-1))
     rows, cols, wts = torch.cat(rows), torch.cat(cols), torch.cat(wts)
     # drop zero weights (a facet-basis value can vanish at a candidate) and
     # columns that are themselves hanging at the SAME position class are
@@ -333,7 +333,7 @@ def _build_level(forest: Forest, l: int, degree: int = 1) -> LevelDofs:
     p = degree
     level_ijk, active_index = forest.level_cells[l]
     s = 1 << (forest.max_level - l)
-    off = torch.from_numpy(node_offsets(dim, p)).to(level_ijk.device)
+    off = upload(node_offsets(dim, p), level_ijk.device)
     nodes = (level_ijk[:, None, :] * p + off[None, :, :]) * s
     uniq, cell2dof, _, boundary = _numbering(forest, forest.nkey(nodes, p), p)
     kidx = _index(uniq)
@@ -357,9 +357,9 @@ def _build_level(forest: Forest, l: int, degree: int = 1) -> LevelDofs:
                 inside = (nb[:, axis] >= 0) & (nb[:, axis] < side)
                 missing = inside & ~cellset.contains(
                     forest.level_cell_key(l, nb))
-                face_nodes = torch.from_numpy(
-                    off_h[off_h[:, axis] == (p if sgn > 0 else 0)]).to(
-                        level_ijk.device)
+                face_nodes = upload(
+                    off_h[off_h[:, axis] == (p if sgn > 0 else 0)],
+                    level_ijk.device)
                 fc = (level_ijk[:, None, :] * p + face_nodes[None]) * s
                 pos = kidx.lookup(forest.nkey(fc, p))
                 interface[torch.where(missing[:, None], pos, n)] = True

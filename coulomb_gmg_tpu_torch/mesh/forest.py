@@ -30,6 +30,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
+
 
 def to_host(a) -> np.ndarray:
     """numpy of a tensor: a CPU tensor's own memory, a card tensor through
@@ -179,12 +181,15 @@ class Forest:
     @cached_property
     def level_t(self) -> torch.Tensor:
         """``level`` as an int64 tensor on ``device``."""
-        return torch.from_numpy(self.level).to(self.device, torch.int64)
+        return upload(self.level, self.device, torch.int64)
 
     @cached_property
     def ijk_t(self) -> torch.Tensor:
         """``ijk`` as an int64 tensor on ``device``."""
-        return _int64(self.ijk).to(self.device)
+        if isinstance(self.ijk, torch.Tensor):
+            return _int64(self.ijk).to(self.device)
+        return upload(np.ascontiguousarray(self.ijk, dtype=np.int64),
+                      self.device)
 
     # ------------------------------------------------------------ basics
 
@@ -251,8 +256,8 @@ class Forest:
         """Physical position of node-lattice coords (..., dim), float64."""
         hn = self.h0 / ((1 << self.max_level) * degree)
         c = coords if isinstance(coords, torch.Tensor) else _int64(coords)
-        lower = torch.from_numpy(np.asarray(self.lower, np.float64))
-        out = lower.to(c.device) + hn * c.to(torch.float64)
+        lower = upload(np.asarray(self.lower, np.float64), c.device)
+        out = lower + hn * c.to(torch.float64)
         return out if isinstance(coords, torch.Tensor) else out.numpy()
 
     @_same_kind(1)

@@ -34,6 +34,7 @@ import torch
 
 from typing import Optional
 
+from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch import kernels
 
@@ -62,7 +63,7 @@ def pack_atoms(positions, charges, device,
     a = np.zeros((len(positions), 4), np.float64)
     a[:, :3] = np.asarray(positions, np.float64)
     a[:, 3] = np.asarray(charges, np.float64)
-    return torch.from_numpy(a).to(device=device, dtype=dtype).contiguous()
+    return upload(a, device, dtype).contiguous()
 
 
 def dense_density_plain(lower: torch.Tensor, h: torch.Tensor,
@@ -167,8 +168,7 @@ def density_operands(forest: Forest, points_ref, positions, charges,
     ``(args, kwargs)``.  Constants are rounded to float32 up front, as the
     TPU kernel saw them."""
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-            device)
+        return upload(np.ascontiguousarray(a, np.float32), device)
 
     const = 4.0 * np.pi / (r_c ** 3 * np.pi ** 1.5)     # as ops/density.py
     args = (put(forest.cell_lower()), put(forest.cell_h()), put(points_ref),
@@ -208,9 +208,9 @@ def atom_masks(forest: Forest, positions: np.ndarray, cutoff: float,
     vertex (src/step-50.cc:273-283), computed in float64 on ``device``.
     The minimum over the 2^dim corners factorizes per axis."""
     dev = torch.device(device)
-    pos = torch.from_numpy(np.asarray(positions, np.float64)).to(dev)
-    lower = torch.from_numpy(forest.cell_lower()).to(dev)
-    h = torch.from_numpy(forest.cell_h()).to(dev)
+    pos = upload(np.asarray(positions, np.float64), dev)
+    lower = upload(forest.cell_lower(), dev)
+    h = upload(forest.cell_h(), dev)
     out = []
     for s in range(0, forest.n_cells, chunk):
         a = pos[None, :, :] - lower[s:s + chunk, None, :]
@@ -298,7 +298,7 @@ def compute_density(forest: Forest, points_ref: np.ndarray, positions,
     sel = np.arange(forest.n_cells) if cells is None else \
         np.arange(cells.start, cells.stop)
     const = 4.0 * np.pi / (r_c ** 3 * np.pi ** 1.5)
-    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+    put = lambda a: upload(np.ascontiguousarray(a), dev, dtype)
     pos = put(np.asarray(positions, np.float64).reshape(-1, dim))
     q = put(np.asarray(charges, np.float64))
     x1 = _tensor_rule_1d(np.asarray(points_ref, np.float64), dim)
@@ -315,7 +315,7 @@ def compute_density(forest: Forest, points_ref: np.ndarray, positions,
             e = min(s + step, len(rows))
             rho = _rho_block(lower[s:e], h[s:e], pref, x1, pos_of(s, e),
                              qa_of(s, e), r_c)
-            out[torch.from_numpy(rows[s:e]).to(dev)] = const * rho
+            out[upload(rows[s:e], dev)] = const * rho
 
     if lists is not None:
         lists = lists[sel]
@@ -325,8 +325,7 @@ def compute_density(forest: Forest, points_ref: np.ndarray, positions,
             hi = min(kclass, lists.shape[1])
             rows = np.where((counts >= lo) & (counts <= hi))[0]
             if len(rows):
-                li = torch.from_numpy(
-                    np.ascontiguousarray(lists[rows][:, :hi])).to(dev)
+                li = upload(np.ascontiguousarray(lists[rows][:, :hi]), dev)
                 safe = li.clamp(min=0).long()
                 qa = torch.where(li >= 0, q[safe], 0.0)
                 run(rows, hi, lambda s, e: qa[s:e],
@@ -337,7 +336,7 @@ def compute_density(forest: Forest, points_ref: np.ndarray, positions,
     if mask is not None:
         mask = mask[sel]
         rows = np.where(mask.any(axis=1))[0]
-        mk = torch.from_numpy(np.ascontiguousarray(mask[rows])).to(dev)
+        mk = upload(np.ascontiguousarray(mask[rows]), dev)
         run(rows, len(q), lambda s, e: q[None, :] * mk[s:e],
             lambda s, e: pos)
         return out

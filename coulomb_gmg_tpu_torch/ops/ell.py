@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch import kernels
 
 # Rows of a slice: one warp of the sliced kernel, a compile-time constant
@@ -245,7 +246,7 @@ class SlicedELL:
     def device(self, device, dtype: torch.dtype = None):
         """(:class:`Slices`, flat vals) on ``device``: the operand pair of
         :func:`ell_mv`."""
-        put = lambda a: torch.from_numpy(a).to(device)
+        put = lambda a: upload(a, device)
         vals = put(self.vals)
         return (Slices(put(self.off), put(self.cols), self.n_rows,
                        self.width),
@@ -303,6 +304,6 @@ class ELL:
     def device(self, device, dtype: torch.dtype = None):
         """(cols int32, vals) in the padded kernel's transposed (K, n_rows)
         layout on ``device``."""
-        cols = torch.from_numpy(np.ascontiguousarray(self.cols.T)).to(device)
-        vals = torch.from_numpy(np.ascontiguousarray(self.vals.T)).to(device)
+        cols = upload(np.ascontiguousarray(self.cols.T), device)
+        vals = upload(np.ascontiguousarray(self.vals.T), device)
         return cols, vals if dtype is None else vals.to(dtype)

@@ -7,8 +7,8 @@ src/step-50.cc:969-973), an inherently sequential sweep:
 * ``ssor`` (:class:`HostSSOR`): exact sequential SSOR by sparse triangular
   solves in host scipy, float64, as the JAX package defines it: the
   reference's smoother and that of every golden.  Each application copies
-  the defect to the host and the result back; the object counts the
-  seconds of both;
+  the defect to the host and the result back (the run's ``host_reads`` and
+  ``uploads``) and solves in a span ``smoother.ssor_host``;
 * ``mc_ssor``: multicolour (2^dim colours) symmetric Gauss-Seidel, each
   colour's rows a sliced ELL block through the ELL kernel, written back by
   an indexed write over that colour's rows (unique, so no scatter over
@@ -23,13 +23,15 @@ tensors; :class:`MGSmoother` wraps them with the deal.II
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
+from coulomb_gmg_tpu_torch.solver.cg import host_array
+from coulomb_gmg_tpu_torch.utils.timer import span
 from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 
 
@@ -52,9 +54,9 @@ class HostSSOR:
       y1 = (D/omega + L)^{-1} r
       y  = y1 + (D/omega + U)^{-1} (r - A y1)
 
-    ``calls``, ``solve_s`` (host solves) and ``copy_s`` (the defect to the
-    host and the result back, device work before it synchronized first)
-    count its applications."""
+    The solves of each application are a span ``smoother.ssor_host`` of
+    the run (utils/timer.py); the defect's copy to the host counts in its
+    ``host_reads``, the result's copy back in its ``uploads``."""
 
     def __init__(self, A, omega: float = 0.5):
         import scipy.sparse as sp
@@ -64,28 +66,15 @@ class HostSSOR:
         self.S = S
         self.lower = (Dw + sp.tril(S, k=-1, format="csr")).tocsr()
         self.upper = (Dw + sp.triu(S, k=1, format="csr")).tocsr()
-        self.calls = 0
-        self.solve_s = 0.0
-        self.copy_s = 0.0
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         import scipy.sparse.linalg as spla
-        if r.is_cuda:
-            torch.cuda.synchronize(r.device)
-        t0 = time.perf_counter()
-        rh = r.detach().cpu().numpy().astype(np.float64)
-        t1 = time.perf_counter()
-        y1 = spla.spsolve_triangular(self.lower, rh, lower=True)
-        y = y1 + spla.spsolve_triangular(self.upper, rh - self.S @ y1,
-                                         lower=False)
-        t2 = time.perf_counter()
-        out = torch.from_numpy(y).to(r.device, r.dtype)
-        if r.is_cuda:
-            torch.cuda.synchronize(r.device)
-        self.copy_s += (t1 - t0) + (time.perf_counter() - t2)
-        self.solve_s += t2 - t1
-        self.calls += 1
-        return out
+        rh = host_array(r.detach()).astype(np.float64)
+        with span("smoother.ssor_host"):
+            y1 = spla.spsolve_triangular(self.lower, rh, lower=True)
+            y = y1 + spla.spsolve_triangular(self.upper, rh - self.S @ y1,
+                                             lower=False)
+        return upload(y, r.device, r.dtype)
 
 
 def make_ssor_host(A, omega: float = 0.5) -> HostSSOR:
@@ -115,8 +104,8 @@ def make_mc_ssor(A, color: np.ndarray, omega: float = 0.5):
         e = SlicedELL.from_coo(np.repeat(np.arange(len(rows)), lens),
                                A.indices[src], data[src], len(rows))
         cols, vals = e.device(dev)
-        w = torch.from_numpy(omega / diag[rows]).to(dev, A.data.dtype)
-        slices.append((torch.from_numpy(rows).to(dev), cols, vals, w))
+        w = upload(omega / diag[rows], dev, A.data.dtype)
+        slices.append((upload(rows, dev), cols, vals, w))
 
     def precond(r):
         y = torch.zeros_like(r)

@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 
 
@@ -58,7 +59,7 @@ class CSR:
         host = None
         if not isinstance(data, torch.Tensor):
             host = np.ascontiguousarray(data)
-            data = torch.from_numpy(host).to(device)
+            data = upload(host, device)
         return CSR(n_rows=n_rows, n_cols=n_cols or n_rows, indptr=indptr,
                    indices=np.asarray(indices, np.int64), rowids=rowids,
                    data=data, _host=host)
@@ -107,8 +108,7 @@ class CSR:
         sel = np.flatnonzero(self.rowids == self.indices)
         dev = self.data.device
         out = torch.zeros(self.n_rows, dtype=self.data.dtype, device=dev)
-        out[torch.from_numpy(self.rowids[sel]).to(dev)] = \
-            self.data[torch.from_numpy(sel).to(dev)]
+        out[upload(self.rowids[sel], dev)] = self.data[upload(sel, dev)]
         return out
 
     def to_scipy(self):

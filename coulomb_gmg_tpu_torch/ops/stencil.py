@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.forest import (Forest, KeyIndex,
                                                corner_offsets, to_host)
 from coulomb_gmg_tpu_torch.mesh.dofs import LevelDofs
@@ -100,7 +101,7 @@ def level_topology(forest: Forest, ld: LevelDofs, l: int) -> LevelTopology:
     side = forest.side(l)
     level_ijk, _ = forest.level_cells[l]
     cells = KeyIndex(forest.level_cell_key(l, level_ijk))
-    corners = torch.from_numpy(corner_offsets(dim)).to(coords.device)
+    corners = upload(corner_offsets(dim), coords.device)
     mask8 = torch.zeros(len(coords), dtype=torch.uint8, device=coords.device)
     for c in range(2 ** dim):
         cand = coords - corners[c]
@@ -166,10 +167,10 @@ def build_level_ops(coords, mask8, elim, iface, bnd, n, T, *, dim, side, h,
     evaluated at the reversed offset."""
     dev = coords.device
     n_pad = coords.shape[0]
-    offs = torch.from_numpy(offset3(dim)).to(dev)                # (K3, dim)
+    offs = upload(offset3(dim), dev)                             # (K3, dim)
     K3 = offs.shape[0]
     center = (K3 - 1) // 2
-    scale = torch.tensor(float(h) ** (dim - 2), dtype=dtype, device=dev)
+    scale = upload(np.asarray(float(h) ** (dim - 2)), dev, dtype)
     Td = T.to(dtype)
     elim, iface, bnd = elim.bool(), iface.bool(), bnd.bool()
 
@@ -232,7 +233,7 @@ def build_prolongation_ops(coords_f, n_f, coords_c, n_c, *, dim, side_c,
 
     # ---- P: (2^dim, n_pad_f)
     cf = coords_f.to(torch.int64)
-    corners = torch.from_numpy(corner_offsets(dim)).to(dev)   # (nbp, dim)
+    corners = upload(corner_offsets(dim), dev)                # (nbp, dim)
     odd = cf & 1
     base = cf >> 1
     m_coord = base[None] + corners[:, None, :] * odd[None]
@@ -246,7 +247,7 @@ def build_prolongation_ops(coords_f, n_f, coords_c, n_c, *, dim, side_c,
     p_vals = torch.where(ok, p_w, zero)
 
     # ---- R = P^T: (3^dim, n_pad_c)
-    offs = torch.from_numpy(offset3(dim)).to(dev)
+    offs = upload(offset3(dim), dev)
     cc = coords_c.to(torch.int64)
     fq = 2 * cc[None] + offs[:, None, :]
     in_box = ((fq >= 0) & (fq <= side_f)).all(-1)

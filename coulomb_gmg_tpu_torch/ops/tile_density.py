@@ -27,8 +27,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch.ops.neighbors import build_atom_buckets
+from coulomb_gmg_tpu_torch.utils.timer import span
 from coulomb_gmg_tpu_torch import kernels
 
 P_TILE = 512              # points per cell block (cpb = P_TILE // n_q cells)
@@ -146,7 +148,7 @@ def build_geom(cells: torch.Tensor, pref: torch.Tensor, h0: float,
     n, n_q = cells.shape[0], pref.shape[0]
     ijk = cells[:, :dim]
     lev = cells[:, dim]
-    low0 = torch.tensor(np.asarray(lower0, np.float32), device=cells.device)
+    low0 = upload(np.asarray(lower0, np.float32), cells.device)
     scale = (h0 * torch.exp2(-lev.to(torch.float32)))[:, None]
     lower = low0 + ijk.to(torch.float32) * scale
     anc = low0 + (ijk >> lev[:, None]).to(torch.float32) * h0
@@ -271,7 +273,7 @@ def plan_operands(forest: Forest, points_ref, plan: TilePlan, r_c: float,
     ``(args, kwargs)``.  Constants are rounded to float32 up front, as the
     TPU kernel saw them."""
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return upload(np.ascontiguousarray(a), device)
 
     pref = put(np.asarray(points_ref, np.float32))
     pts, anc = build_geom(put(plan.cells), pref, float(forest.h0),
@@ -298,7 +300,11 @@ def density_locality_tiles(forest: Forest, points_ref: np.ndarray,
     c_pad = forest.n_cells + 1 if c_pad is None else int(c_pad)
     if len(positions) == 0:
         return torch.zeros(c_pad, n_q, dtype=torch.float32, device=device)
-    plan = build_tile_plan(forest, n_q, positions, charges, cutoff,
-                           a_tile=a_tile, n_rows=c_pad)
-    args, kw = plan_operands(forest, points_ref, plan, r_c, cutoff, device)
-    return tile_density(*args, n_out=c_pad, **kw)
+    with span("density.plan"):
+        plan = build_tile_plan(forest, n_q, positions, charges, cutoff,
+                               a_tile=a_tile, n_rows=c_pad)
+    with span("density.upload"):
+        args, kw = plan_operands(forest, points_ref, plan, r_c, cutoff,
+                                 device)
+    with span("density.kernel"):
+        return tile_density(*args, n_out=c_pad, **kw)

@@ -23,20 +23,51 @@ host SSOR of the GMG route stays in this host loop, as JAX runs it with
 
 from __future__ import annotations
 
+from time import perf_counter_ns
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from coulomb_gmg_tpu_torch.utils.timer import count, tracing
+
+
+def _counted(read, t):
+    """``read(t)``, a blocking read from the device, counted in the open
+    run's ``host_reads`` and ``host_read_ns`` (the wait included)."""
+    if not tracing():
+        return read(t)
+    t0 = perf_counter_ns()
+    out = read(t)
+    count("host_reads")
+    count("host_read_ns", perf_counter_ns() - t0)
+    return out
 
 
 def to_host(t: torch.Tensor):
     """``t.tolist()``: the value of a small device tensor on the host, one
     read from the device, counted in ``to_host.reads`` (the solver loops'
-    reads; a CPU tensor counts as well, standing for the card's)."""
+    reads; a CPU tensor counts as well, standing for the card's) and in the
+    run's ``host_reads``."""
     to_host.reads += 1
-    return t.tolist()
+    return _counted(torch.Tensor.tolist, t)
 
 
 to_host.reads = 0
+
+
+def host_float(t: torch.Tensor) -> float:
+    """``float(t)``, counted as :func:`to_host` counts in the run, not in
+    ``to_host.reads``: the reads around the solver loops."""
+    return _counted(float, t)
+
+
+def host_array(t: torch.Tensor):
+    """``t.cpu().numpy()``, counted as :func:`host_float`."""
+    return _counted(_numpy, t)
+
+
+def _numpy(t):
+    return t.cpu().numpy()
 
 
 class CGResult(NamedTuple):

@@ -24,6 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
+from coulomb_gmg_tpu_torch.utils.timer import span, spanned
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch.mesh.dofs import DofInfo, Constraints
 from coulomb_gmg_tpu_torch.ops.q1 import element_tables
@@ -32,6 +34,7 @@ from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 from coulomb_gmg_tpu_torch.ops.stencil import (
     stencil_table, level_topology, topology_signature, build_level_ops,
     build_prolongation_ops, power_lmax_device)
+from coulomb_gmg_tpu_torch.solver.cg import host_array, host_float
 from coulomb_gmg_tpu_torch.solver.fused import SteppedGMG
 from coulomb_gmg_tpu_torch.solver.gmg import (
     pad_n, round_up, copy_map_tables, dst_tables, cellwise_mv, gmg_cg)
@@ -143,6 +146,7 @@ class StencilGMG:
     and kept until :meth:`release`; ``fused=False`` runs the eager loop
     ``gmg_cg``, a measurement aid."""
 
+    @spanned("mg.levels")
     def __init__(self, forest: Forest, dofs: DofInfo,
                  constraints: Constraints, device, dtype=torch.float32,
                  cache: Optional[dict] = None, coarse_maxiter: int = 500,
@@ -159,9 +163,8 @@ class StencilGMG:
         self.n_pad = pad_n(n)
 
         def put(a, dt=None):
-            t = (a if isinstance(a, torch.Tensor)
-                 else torch.from_numpy(np.ascontiguousarray(a)))
-            t = t.to(self.device)
+            t = (a.to(self.device) if isinstance(a, torch.Tensor)
+                 else upload(np.ascontiguousarray(a), self.device))
             return t if dt is None else t.to(dt)
 
         tab = element_tables(dim, 1, 2)
@@ -297,7 +300,8 @@ class StencilGMG:
                               want_iface=want_if, dtype=self.dtype)
         cols, evals, inv_diag = out[:3]
         if_vals, ifT_vals = out[3:] if want_if else (None, None)
-        lmax = float(power_lmax_device(cols, evals, inv_diag, t.n)) * 1.05
+        lmax = host_float(power_lmax_device(cols, evals, inv_diag,
+                                            t.n)) * 1.05
         lmin = lmax / SMOOTHING_RANGE
         return dict(cols=cols, evals=evals, inv_diag=inv_diag,
                     if_vals=if_vals, ifT_vals=ifT_vals,
@@ -313,7 +317,7 @@ class StencilGMG:
         Returns (x (n_pad,), iterations, |r0|, |r|)."""
         if x0 is None:
             x0 = torch.zeros_like(rhs)
-        nb = (float(torch.linalg.vector_norm(rhs)) if rhs_norm is None
+        nb = (host_float(torch.linalg.vector_norm(rhs)) if rhs_norm is None
               else float(rhs_norm))
         if not self.fused:
             return gmg_cg(self.ops, rhs, x0, rtol * nb, maxiter)
@@ -341,9 +345,8 @@ class StencilGMG:
         if rho.shape[0] != self.C_pad:
             raise ValueError(f"rho has {rho.shape[0]} rows, expected "
                              f"{self.C_pad}")
-        wphi = torch.from_numpy(
-            np.asarray(tab_rhs.weights, np.float64)[:, None]
-            * np.asarray(tab_rhs.phi, np.float64)).to(self.device)
+        wphi = upload(np.asarray(tab_rhs.weights, np.float64)[:, None]
+                      * np.asarray(tab_rhs.phi, np.float64), self.device)
         rho64 = rho.to(torch.float64)
         f = torch.zeros_like(s["c2d"], dtype=torch.float64)   # (nb, C_pad)
         for q in range(rho64.shape[1]):
@@ -369,25 +372,31 @@ def solve_refined_device(gmg: StencilGMG, x0: Optional[np.ndarray] = None,
     corrections, float64 accumulation of the solution.  Returns
     (x (n,) float64 numpy, total CG iterations, |r0|, |r_final|, CG
     iterations per pass); the norms are those of the TRUE float64
-    defect."""
+    defect.  Each pass is a span ``solve.cg`` of the run, each defect and
+    the solution's copy to the host a span ``solve.check``."""
     b = gmg.b64
-    tol = rtol * float(torch.linalg.vector_norm(b))
+    with span("solve.check"):
+        tol = rtol * host_float(torch.linalg.vector_norm(b))
     x = torch.zeros_like(b)
     if x0 is not None:
-        x[: gmg.n] = torch.from_numpy(np.asarray(x0, np.float64)).to(b.device)
+        x[: gmg.n] = upload(np.asarray(x0, np.float64), b.device)
     passes = []
     res0 = None
     for p in range(IR_MAX_PASSES + 1):
-        r = gmg.defect64(x)
-        rnorm = float(torch.linalg.vector_norm(r))
+        with span("solve.check"):
+            r = gmg.defect64(x)
+            rnorm = host_float(torch.linalg.vector_norm(r))
         if res0 is None:
             res0 = rnorm
         if rnorm <= tol or sum(passes) >= maxiter or p == IR_MAX_PASSES:
             break
         # a later pass needs only the remaining gain, not the float32 floor
         inner = min(max(IR_INNER_RTOL, 0.3 * tol / max(rnorm, 1e-300)), 0.1)
-        d, k, _, _ = gmg.solve(r.to(gmg.dtype), rtol=inner, maxiter=maxiter,
-                               rhs_norm=rnorm)
-        x = x + d.to(torch.float64)
+        with span("solve.cg"):
+            d, k, _, _ = gmg.solve(r.to(gmg.dtype), rtol=inner,
+                                   maxiter=maxiter, rhs_norm=rnorm)
+            x = x + d.to(torch.float64)
         passes.append(k)
-    return x[: gmg.n].cpu().numpy(), sum(passes), res0, rnorm, passes
+    with span("solve.check"):
+        x = host_array(x[: gmg.n])
+    return x, sum(passes), res0, rnorm, passes

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import gc
 import time
+from time import perf_counter_ns
 from contextlib import ExitStack, contextmanager
 from typing import Callable, Optional
 
@@ -66,6 +67,7 @@ import torch
 from coulomb_gmg_tpu_torch import kernels
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 from coulomb_gmg_tpu_torch.solver.cg import CGResult, to_host
+from coulomb_gmg_tpu_torch.utils.timer import span
 from coulomb_gmg_tpu_torch.solver.gmg import (_safe_div, _smooth, sys_mv,
                                               tol_squared, vcycle,
                                               vcycle_down, vcycle_up)
@@ -121,6 +123,8 @@ class Segments:
         self.cards = {}           # segment -> {(kernel, card): a replay's}
         self.moved = {}           # segment -> (calls, bytes) a replay's
         self.warmup = {}          # counter attribute -> warm-up launches
+        # the warm-up, captures and instantiations are one span
+        # ``graphs.capture`` of the run; these two read the same clock
         self.capture_s = 0.0      # capture of every segment
         self.instantiate_s = 0.0  # capture_end: instantiation of the graphs
         self._fence = False
@@ -129,7 +133,8 @@ class Segments:
         """Capture the graphs if there are none yet (on the card); the
         warm-up writes the state, so call this before loading inputs."""
         if self.capture and self.graphs is None:
-            self._capture()
+            with span("graphs.capture"):
+                self._capture()
         self._fence = bool(self.others)
 
     def run(self, name: str) -> None:
@@ -214,7 +219,7 @@ class Segments:
             graphs = {}
             for name, fn in self.fns.items():
                 g = torch.cuda.CUDAGraph()
-                t0 = time.perf_counter()
+                t0 = perf_counter_ns()
                 with _streams(sides, self.device), ExitStack() as routed:
                     for d in self.others:
                         routed.enter_context(
@@ -228,10 +233,10 @@ class Segments:
                             for d in self.others:         # join
                                 sides[self.device].wait_stream(sides[d])
                     finally:
-                        t1 = time.perf_counter()
+                        t1 = perf_counter_ns()
                         g.capture_end()
-                self.capture_s += t1 - t0
-                self.instantiate_s += time.perf_counter() - t1
+                self.capture_s += (t1 - t0) * 1e-9
+                self.instantiate_s += (perf_counter_ns() - t1) * 1e-9
                 self.launches[name] = taken["launches"]
                 self.cards[name] = taken["cards"]
                 if taken["moved"][0]:

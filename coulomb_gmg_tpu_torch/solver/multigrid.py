@@ -30,13 +30,14 @@ indices, so the cycle is the same on every run.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch.device import upload
+from coulomb_gmg_tpu_torch.utils.timer import spanned
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch.mesh.dofs import Constraints, DofInfo, LevelDofs
 from coulomb_gmg_tpu_torch.fem.assembly import (AssemblyPlan, build_plan,
@@ -47,7 +48,7 @@ from coulomb_gmg_tpu_torch.ops.spmv import CSR
 from coulomb_gmg_tpu_torch.ops.smoothers import (
     MGSmoother, make_jacobi, make_mc_ssor, make_ssor_host, make_chebyshev,
     lattice_color)
-from coulomb_gmg_tpu_torch.solver.cg import cg
+from coulomb_gmg_tpu_torch.solver.cg import cg, host_float
 
 
 def level_constraints(ld: LevelDofs) -> Constraints:
@@ -141,16 +142,15 @@ def build_prolongation(forest: Forest, dofs: DofInfo, l: int,
     np.cumsum(indptr, out=indptr)
     return CSR(n_rows=ld.n_dofs, n_cols=lc.n_dofs, indptr=indptr,
                indices=cols, rowids=rows,
-               data=torch.from_numpy(vals.astype(np_dtype)).to(device))
+               data=upload(vals.astype(np_dtype), device))
 
 
 @dataclass
 class GMGPreconditioner:
     """One V-cycle of local-smoothing GMG, used as a CG preconditioner.
     ``copy_global`` / ``copy_level`` are numpy index arrays;
-    ``coarse_iterations`` records the coarse CG's count of each V-cycle,
-    ``coarse_seconds`` their time (device work before each synchronized
-    first)."""
+    ``coarse_iterations`` records the coarse CG's count of each V-cycle;
+    each coarse solve is a span ``solve.coarse`` of the run."""
 
     matrices: List[CSR]                 # A_l per level
     interfaces: List[Optional[CSR]]     # A_l^if (None at level 0)
@@ -163,26 +163,22 @@ class GMGPreconditioner:
     coarse_maxiter: int = 1000
     coarse_rtol: float = 0.0            # >0: relative floor (float32 runs)
     coarse_iterations: list = field(default_factory=list)
-    coarse_seconds: float = 0.0
 
     def __post_init__(self):
         dev = self.matrices[0].data.device
-        idx = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+        idx = lambda a: upload(np.asarray(a, np.int64), dev)
         self._copies = [(idx(g), idx(c)) for g, c in zip(self.copy_global,
                                                          self.copy_level)]
 
+    @spanned("solve.coarse")
     def _coarse_solve(self, d0):
-        if d0.is_cuda:
-            torch.cuda.synchronize(d0.device)
-        t0 = time.perf_counter()
         tol = self.coarse_tol
         if self.coarse_rtol > 0.0:
-            tol = max(tol, self.coarse_rtol * float(
+            tol = max(tol, self.coarse_rtol * host_float(
                 torch.linalg.vector_norm(d0)))
         res = cg(self.matrices[0].matvec, d0, tol=tol,
                  maxiter=self.coarse_maxiter)
         self.coarse_iterations.append(res.iterations)
-        self.coarse_seconds += time.perf_counter() - t0
         return res.x
 
     def __call__(self, g: torch.Tensor) -> torch.Tensor:
@@ -232,6 +228,7 @@ def _level_signature(forest: Forest, ld: LevelDofs) -> tuple:
     return (ld.level, ld.n_dofs, len(ld.cell2dof), h.hexdigest())
 
 
+@spanned("mg.levels")
 def build_gmg(forest: Forest, dofs: DofInfo, tables,
               coeff_fn: Optional[Callable] = None, smoother: str = "ssor",
               smoother_damping: float = 0.5, smoother_steps: int = 2,
