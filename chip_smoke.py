@@ -5,7 +5,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require a CUDA card; print the nvidia-smi name and power limit;
-2. build: compile the four hand kernels (coulomb_gmg_tpu_torch/csrc) with
+2. build: compile the five hand kernels (coulomb_gmg_tpu_torch/csrc) with
    nvcc, one process per source, all started together;
 3. kernel vs plain PyTorch version on the card, at main-path shapes (the
    8,000-atom cycle-0 mesh: density plan, finest level operator, RHS and
@@ -16,7 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    yardstick the port never calls.  The ELL kernel is also timed on every
    level operator (A and P) of the cycle-0 hierarchy; the dense density
    counts the (point, atom) pairs it evaluated and must give the same bits
-   with its exact skip of zero terms as without it;
+   with its exact skip of zero terms as without it.  The ordered segment
+   sum of the card CSR assembly runs on the card plan of the same mesh's
+   system (fem/card_assembly.py, as the float64 route of phase 6 builds it
+   at its cycle 0), matrix and load vector, and must give the plain
+   version's bits (``torch.equal``);
 4. main path: the 8,000-atom production run (5 adaptive cycles) through
    ``Simulation``; the published per-cycle cell counts must come out
    exactly, every cycle must reach a true float64 residual of
@@ -29,16 +33,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase 4, every FE error must be finite and in (0, 0.03 sqrt(n_atoms))
    and equal the earlier runs' to rel 1e-8, the last one must agree with
    its float64 plain recomputation to rel 1e-4, and the dense-density,
-   exact-gradient and ELL kernels (not the tile kernel) must have been
-   launched by that run;
+   exact-gradient and ELL kernels (not the tile kernel, nor the segment
+   sum) must have been launched by that run;
 6. the host-assembled path at full width: the same 8,000-atom study in the
    reference's own precision (float64, host CSR assembly, the level-matrix
    GMG with the host SSOR smoother and its coarse CG, the float64 list
    density), ``production_scaling_config(10, dtype="float64",
    device_operators="off")``.  The published cells must come out exactly,
    every cycle at a true float64 residual of 1e-8 * ||b||, the solution
-   finite, the earlier runs' CG counts, the ELL kernel launched (float64
-   launches among them) and the tile kernel not; it prints the stage
+   finite, the earlier runs' CG counts, the ELL kernel (float64 launches
+   among them) and the CSR assembly's segment sum launched and the tile
+   kernel not; it prints the stage
    seconds, the SSOR host seconds, the coarse CG iterations per V-cycle
    and the peak device memory.  Then the ELL layouts on the last cycle's
    float64 system (K = 51): the host build of the sliced layout beside
@@ -56,7 +61,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``examples/step-16.prm`` in float32 (tile density, ``TpuGMG`` with
    ``solve_refined``) and the same file with the Jacobi preconditioner
    (``tpu_cg_solve``), cells and CG held to JAX CPU runs of the same
-   configurations; then the replay and read times of the stepped solve's
+   configurations, the matrices of both summed on the card by the segment
+   sum kernel; then the replay and read times of the stepped solve's
    graphs on the last Step16 hierarchy (its coarse CG);
 8. the device-operator path in float64 at full width:
    ``production_scaling_config(10, dtype="float64", device_operators="on",
@@ -64,7 +70,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    which ``"auto"`` gives only in float32): one GMG-CG at ``cg_rtol`` per
    cycle, the float32 list density of the tpu_cg route.  The published
    cells, a true float64 residual of 1.01e-8 * ||b|| every cycle, ELL
-   launches all float64 and no tile launch; it prints the CG counts,
+   launches all float64 and no tile or segment-sum launch (no CSR is
+   built on this route); it prints the CG counts,
    stages and peak memory;
 9. several devices on the one card: 4 shards on ``cuda:0``.  First the
    8,000-atom study in float64 through the SPMD path (sharded list density
@@ -220,7 +227,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 STEP16_F32 = dict(cells=[4096, 5307, 7526, 10032, 17312],
                   cg=[6, 15, 15, 17, 17], slack=1)
 STEP16_JACOBI = dict(cells=[4096, 5307, 7526], cg=[13, 19, 28], slack=4)
-KERNELS = ("ell_spmv", "tile_density", "dense_density", "exact_gradient")
+KERNELS = ("ell_spmv", "tile_density", "dense_density", "exact_gradient",
+           "segment_sum")
 
 
 def phase_device():
@@ -258,8 +266,10 @@ def counters():
     from coulomb_gmg_tpu_torch.ops.ell import ell_mv
     from coulomb_gmg_tpu_torch.ops.gradient import exact_gradient
     from coulomb_gmg_tpu_torch.ops.tile_density import tile_density
+    from coulomb_gmg_tpu_torch.fem.card_assembly import segment_sum
     return {"ell_spmv": ell_mv, "tile_density": tile_density,
-            "dense_density": dense_density, "exact_gradient": exact_gradient}
+            "dense_density": dense_density, "exact_gradient": exact_gradient,
+            "segment_sum": segment_sum}
 
 
 def reset_counts():
@@ -544,6 +554,8 @@ def phase_kernels():
           f"{ms_gr:.3f} ms, plain {ms_gr_plain:.3f} ms ({PLAIN_REPS} reps); "
           f"{bound_text(b_gr, ms_gr)}", flush=True)
 
+    ss = segment_sums(sim, f)
+
     def row(err, ms, plain, b, lib=None):
         return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                     bound_ms=b["bound_ms"], bound_by=b["bound_by"],
@@ -554,7 +566,60 @@ def phase_kernels():
                         ms_ell_lib),
         "dense_density": row(err_dd, ms_dd, ms_dd_plain, b_dd),
         "exact_gradient": row(err_gr, ms_gr, ms_gr_plain, b_gr),
+        "segment_sum": row(0.0, ss["ms"], ss["plain_ms"], ss["bound"]),
     }
+
+
+def segment_sums(sim, f):
+    """The card CSR assembly's segment sum on the system of ``f`` (phase
+    3's 8,000-atom cycle-0 mesh, ``sim``'s constraints): the card plan and
+    float64 element values as the float64 route builds them, the matrix
+    and the load vector each equal to the plain version's bits; the
+    matrix's sum timed beside the plain version's."""
+    import torch
+    from coulomb_gmg_tpu_torch import roofline
+    from coulomb_gmg_tpu_torch.fem import card_assembly as ca
+    from coulomb_gmg_tpu_torch.fem.integrals import rhs_cells
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = ca.plan(f.dofs_of(1).cell2dof, ca.card_constraints(sim.constraints,
+                                                           dev), rhs=True)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    high = torch.cuda.max_memory_allocated() - base
+    h = torch.from_numpy(f.cell_h()).to(dev)
+    k = ca.cell_matrices(sim.tab_lap, h)
+    rho = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (f.n_cells, len(sim.tab_rhs.points)))).to(dev)
+    fc = rhs_cells(sim.tab_rhs, h, rho).reshape(-1)
+    ex = p.ex
+    dvals = torch.rand(len(ex.dof), dtype=torch.float64, device=dev)
+    mat = (p.seg, p.src, k.kvals, k.scale, p.nb)
+    load = (p.rhs_seg, p.rhs_src, fc, None, 1)
+    y = ca.segment_sum(*mat, ex=ex)
+    if not torch.equal(y, ca.segment_sum_plain(*mat, ex=ex)):
+        raise AssertionError("segment_sum: the matrix differs from the plain "
+                             "version's bits")
+    yb = ca.segment_sum(*load, dvals=dvals)
+    if not torch.equal(yb, ca.segment_sum_plain(*load, dvals=dvals)):
+        raise AssertionError("segment_sum: the load vector differs from the "
+                             "plain version's bits")
+    ms = median_ms(lambda: ca.segment_sum(*mat, ex=ex))
+    plain_ms = median_ms(lambda: ca.segment_sum_plain(*mat, ex=ex),
+                         PLAIN_REPS)
+    b = roofline.segment_sum(p.seg, p.src, y)
+    print(f"[kernel] segment_sum: the 8,000-atom cycle-0 float64 system, "
+          f"{p.pattern.nnz} slots, {b['terms']} entries ({len(ex.dof)} of "
+          f"the constraint expansion, {len(ex.dirty_idx)} dirty cells); plan "
+          f"{plan_s:.3f} s, {high} B above the live bytes; matrix and load "
+          f"equal to the plain version's bits; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms ({PLAIN_REPS} reps); {bound_text(b, ms)}",
+          flush=True)
+    p.release()
+    return {"ms": ms, "plain_ms": plain_ms, "bound": b}
 
 
 def record_cycles(sim):
@@ -856,7 +921,8 @@ def phase_bruteforce_fe():
     want = {"dense_density": launches["dense_density"] == 5,
             "exact_gradient": launches["exact_gradient"] >= 5,
             "ell_spmv": launches["ell_spmv"] > 0,
-            "tile_density": launches["tile_density"] == 0}
+            "tile_density": launches["tile_density"] == 0,
+            "segment_sum": launches["segment_sum"] == 0}
     bad = [k for k, ok in want.items() if not ok]
     if bad:
         raise AssertionError(f"launch counts {launches}: wrong for {bad}")
@@ -930,7 +996,8 @@ def phase_host_f64():
     if not np.isfinite(sim.solution).all():
         raise AssertionError("host f64: non-finite solution")
     if not (launches["ell_spmv"] > 0 and f64 > 0
-            and launches["tile_density"] == 0):
+            and launches["tile_density"] == 0
+            and launches["segment_sum"] > 0):
         raise AssertionError(f"host f64: launch counts {launches}, float64 "
                              f"ELL {f64}")
     if not (sys_ell["sliced"] <= 1.10 * sys_ell["torch.mv"]
@@ -1011,8 +1078,8 @@ def phase_routes():
         if not np.isfinite(sim.solution).all():
             raise AssertionError(f"{tag}: non-finite solution")
         want_tile = tag == "step16 f32"
-        if launches["ell_spmv"] <= 0 or (launches["tile_density"] > 0) \
-                != want_tile:
+        if launches["ell_spmv"] <= 0 or launches["segment_sum"] <= 0 \
+                or (launches["tile_density"] > 0) != want_tile:
             raise AssertionError(f"{tag}: launch counts {launches}")
         if want_tile:
             for r in res:
@@ -1102,7 +1169,8 @@ def phase_device_f64():
             and sim.A is None):
         raise AssertionError("device f64: not the device-operator path")
     if not (launches["ell_spmv"] > 0 and f64 == launches["ell_spmv"]
-            and launches["tile_density"] == 0):
+            and launches["tile_density"] == 0
+            and launches["segment_sum"] == 0):
         raise AssertionError(f"device f64: launch counts {launches}, "
                              f"float64 ELL {f64}")
     return launches
@@ -2034,7 +2102,9 @@ def main():
     replaces = {"tile_density": "coulomb_gmg_tpu/ops/tile_density.py:179",
                 "ell_spmv": "coulomb_gmg_tpu/ops/ell.py:117",
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
-                "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45"}
+                "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45",
+                "segment_sum": "no kernel: coulomb_gmg_tpu/fem/assembly.py:"
+                               "253 (assemble_np, host numpy)"}
     # launches: the sum over the main-path runs (phases 4 to 14)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
@@ -2045,7 +2115,7 @@ def main():
                                            main12, main13, main14)),
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
-                     "exact_gradient")]}
+                     "exact_gradient", "segment_sum")]}
     print(f"[smoke] total {time.time() - t0:.1f} s; phases {seconds}",
           flush=True)
     print(smi)

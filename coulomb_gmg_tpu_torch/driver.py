@@ -17,15 +17,18 @@ the JAX driver chooses them (its ``device_ops_active``, ``use_tpu_cg`` and
   refinement to a true float64 ``cg_rtol * ||b||`` for float32 with
   ``cg_rtol < 5e-7``, else one solve at ``cg_rtol``;
 * **host-assembled** (everything else on one device): the CSR system and
-  the level matrices assembled on the host (fem/assembly.py,
-  solver/multigrid.py) and applied on the device through the ELL kernel
-  (ops/spmv.py), solved by ``TpuGMG`` with ``solve_refined`` or
+  the level and interface matrices assembled on the device
+  (fem/card_assembly.py, solver/multigrid.py), their patterns and values
+  read back where host code needs them (the host SSOR, the ELL layout),
+  applied on the device through the ELL kernel (ops/spmv.py), solved by
+  ``TpuGMG`` with ``solve_refined`` or
   ``tpu_cg_solve`` (``use_tpu_cg``: ``solver_backend="tpu_cg"``, or
   ``"auto"`` in float32), else the host-loop ``cg`` with
   ``GMGPreconditioner`` (the reference's SSOR smoother by default) or
   the CG with Jacobi (solver/fused.py:stepped_cg under ``solve_fused``);
-* **SPMD** (``n_devices > 1``, parallel/): the host-assembled system with
-  the density, assembly, Kelly estimate, FE error and energy sharded over
+* **SPMD** (``n_devices > 1``, parallel/): the system's plan built on the
+  host (fem/assembly.py) with the density, assembly, Kelly estimate, FE
+  error and energy sharded over
   contiguous SFC cell blocks (parallel/spmd.py), solved by ``ShardedGMG``
   or the sharded Jacobi-CG (parallel/sharded_gmg.py, parallel/sharded.py).
   ``Simulation(spmd_devices=...)`` names each shard's device.
@@ -40,8 +43,8 @@ loops.
 Float32 densities come from the tile kernel (``density_tiles``) or the
 dense kernel (no locality flag), float64 ones and ``density_tiles=False``
 from the mask and list branches of ops/density.py:compute_density.  The
-forest (its refinement and balance) and the constraints, assembly plans,
-atom lists and output stay on the host in numpy; the cycle's derived
+forest (its refinement and balance) and the constraints, the SPMD assembly
+plan, atom lists and output stay on the host in numpy; the cycle's derived
 topology is torch code on ``Simulation.device`` (``Forest.device``): the
 DoF numbering with its hanging nodes and level DoFs (mesh/dofs.py), the
 solution transfer (adapt/transfer.py), the level topology and copy maps
@@ -69,11 +72,11 @@ from coulomb_gmg_tpu_torch.adapt.transfer import (
     old_cell_of_new, transfer_cell_mask, transfer_solution)
 from coulomb_gmg_tpu_torch.config import Config
 from coulomb_gmg_tpu_torch.device import resolve, upload
-from coulomb_gmg_tpu_torch.fem.assembly import assemble_np, build_plan
+from coulomb_gmg_tpu_torch.fem import card_assembly
+from coulomb_gmg_tpu_torch.fem.assembly import build_plan
 from coulomb_gmg_tpu_torch.fem.constraints import (build_constraints,
                                                    distribute, set_zero)
-from coulomb_gmg_tpu_torch.fem.integrals import (rhs_cells_np,
-                                                 stiffness_cells_np)
+from coulomb_gmg_tpu_torch.fem.integrals import rhs_cells
 from coulomb_gmg_tpu_torch.io.gnuplot import grid_output_debug
 from coulomb_gmg_tpu_torch.io.lammps import AtomData, read_lammps_file
 from coulomb_gmg_tpu_torch.io.vtu import (nodal_gradient, write_pvtu,
@@ -331,9 +334,15 @@ class Simulation:
             self.rho = torch.cat([rho, rho.new_zeros(1, rho.shape[1])])
         with self._stage("Setup system"), span("topology.constraints"):
             self.constraints = build_constraints(dofs, self.boundary_fn())
-            self.plan = (None if self.device_ops
-                         else build_plan(dofs.host.cell2dof,
-                                         self.constraints))
+            if self.device_ops:
+                self.plan = None
+            elif self.spmd is None:
+                # the CSR pattern and each slot's entries, on the device
+                self.plan = card_assembly.plan(
+                    dofs.cell2dof, card_assembly.card_constraints(
+                        self.constraints, self.device), rhs=True)
+            else:
+                self.plan = build_plan(dofs.host.cell2dof, self.constraints)
 
     # ----------------------------------------------------------- assembly
 
@@ -371,11 +380,17 @@ class Simulation:
                     has_coeff=coeff_q is not None, np_dtype=np_dtype)
                 data, rhs = asm(h, coeff_q, self.rho_host())
             else:
-                K = stiffness_cells_np(self.tab_lap, h, coeff_q,
-                                       dtype=np_dtype)
-                Fv = rhs_cells_np(self.tab_rhs, h, self.rho_host(),
-                                  dtype=np_dtype)
-                data, rhs = assemble_np(self.plan, K, Fv, dtype=np_dtype)
+                # the card's element integrals and ordered CSR sums
+                hd = upload(h, self.device)
+                k = card_assembly.cell_matrices(self.tab_lap, hd, coeff_q,
+                                                self.dtype)
+                f_cells = rhs_cells(self.tab_rhs, hd,
+                                    self.rho[: f.n_cells].to(self.device),
+                                    dtype=self.dtype)
+                data, rhs = card_assembly.assemble(self.plan, k, f_cells,
+                                                   self.dtype)
+                rhs = to_host(rhs)
+                self.plan.release()
             self.A = CSR.from_pattern(self.plan.pattern.indptr,
                                       self.plan.pattern.indices, data,
                                       device=self.device)

@@ -11,9 +11,12 @@ cell loop + ``ConstraintMatrix::distribute_local_to_global`` + Trilinos
   their cross products are generated inside the native pattern engine
   (``csrc/forest_engine.cpp:cgmg_pattern``);
 * **execute:** batched element tensors and two scatter-adds on the host
-  (:func:`assemble_np`, the driver's path, as in the JAX driver); the
-  sharded assembly (parallel/spmd.py) sums the same plan's entries on the
-  shards' devices by gather (:func:`gather_sum`).
+  (:func:`assemble_np`, as in the JAX driver: the studies and the tests'
+  reference); the sharded assembly (parallel/spmd.py) sums the same plan's
+  entries on the shards' devices by gather (:func:`gather_sum`).
+
+The single-device driver builds its matrices on the device instead
+(fem/card_assembly.py), with the same order of entries.
 
 deal.II semantics exactly:
 - unconstrained (i, j): ``K[I,J] += k_ij``;

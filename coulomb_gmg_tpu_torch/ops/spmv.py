@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from coulomb_gmg_tpu_torch.device import upload
+from coulomb_gmg_tpu_torch.mesh.forest import to_host
 from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 
 
@@ -69,8 +70,10 @@ class CSR:
         return len(self.indices)
 
     def data_np(self) -> np.ndarray:
+        """The values on the host, copied once (through pinned memory from
+        a card: the device-assembled matrices' only read-back)."""
         if self._host is None:
-            self._host = self.data.detach().cpu().numpy()
+            self._host = to_host(self.data.detach())
         return self._host
 
     def ell(self, n_pad: Optional[int] = None,

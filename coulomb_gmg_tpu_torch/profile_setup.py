@@ -11,8 +11,10 @@ cold, on that forest: the DoF numbering on the forest's device
 the node positions, ``_find_hanging``, ``_build_level``, ``build_dofs``;
 the card is synchronized around each piece), then on the host the
 constraints (fem/constraints.py, including the one host copy of the DoF
-arrays) and the assembly plan (fem/assembly.py: ``_expand_entries``,
-``native.pattern``, ``build_plan``).  One line a piece with its wall
+arrays) and the host assembly plan (fem/assembly.py: ``_expand_entries``,
+``native.pattern``, ``build_plan``), then the plan that the single-device
+run builds in its place on the forest's device (fem/card_assembly.py:
+``plan``, with the load vector's runs).  One line a piece with its wall
 seconds on the host clock, under the JAX tool's labels where the piece is
 the same, and its last line: the pattern's nonzeros and the clean and
 dirty counts.
@@ -30,6 +32,7 @@ def profile(f, degree: int, boundary_fn) -> dict:
     """Time the pieces on forest ``f``; returns ``{"seconds": {label: s},
     "nnz", "clean", "n_cells", "dirty_m"}``."""
     import torch
+    from coulomb_gmg_tpu_torch.fem import card_assembly
     from coulomb_gmg_tpu_torch.fem.assembly import _expand_entries, build_plan
     from coulomb_gmg_tpu_torch.fem.constraints import build_constraints
     from coulomb_gmg_tpu_torch.mesh.dofs import (_build_level,
@@ -66,6 +69,7 @@ def profile(f, degree: int, boundary_fn) -> dict:
 
     cons = t("build_constraints", lambda: build_constraints(dofs,
                                                             boundary_fn))
+    c2d = dofs.cell2dof
     dofs = dofs.host
     crow = t("  row_of(cell2dof)", lambda: cons.row_of(
         dofs.cell2dof.reshape(-1)).reshape(dofs.cell2dof.shape))
@@ -81,6 +85,8 @@ def profile(f, degree: int, boundary_fn) -> dict:
         np.concatenate([m_row, d_dof]), np.concatenate([m_col, d_dof]),
         cons.n_dofs))
     plan = t("build_plan TOTAL", lambda: build_plan(dofs.cell2dof, cons))
+    t("card_assembly.plan TOTAL (forest's device)", lambda: card_assembly.plan(
+        c2d, card_assembly.card_constraints(cons, f.device), rhs=True))
     print(f"pattern nnz: {plan.pattern.nnz}, "
           f"clean {len(plan.clean_idx)}/{plan.n_cells} cells, "
           f"dirty m-entries {len(plan.md_cell)}", flush=True)

@@ -8,8 +8,10 @@ its 700 W limit.  An FMA counts 2 operations; an ``exp``, ``erf`` or
 written once.  Work counts only what the given inputs need to change the
 output: the member (point, atom) terms of the locality cut, the (point,
 atom) pairs of the brute-force density whose float32 ``exp`` is not zero,
-the nonzero slots of the ELL operator, and every (point, atom) pair of the
-exact gradient, near ones at the full formula's cost.
+the nonzero slots of the ELL operator, every (point, atom) pair of the
+exact gradient, near ones at the full formula's cost, and every entry of
+the CSR assembly's segment sum (a float64 addition counts 2 operations:
+the card's float64 rate is half its float32 rate).
 """
 
 from __future__ import annotations
@@ -92,3 +94,13 @@ def exact_gradient(points: torch.Tensor, atoms: torch.Tensor,
     ops = OPS_GRAD_FAR * (pairs - near) + OPS_GRAD_NEAR * near
     return {**bound(ops, nbytes(points, atoms, points)), "terms": pairs,
             "near": near}
+
+
+def segment_sum(seg: torch.Tensor, src: torch.Tensor,
+                out: torch.Tensor) -> dict:
+    """One float64 addition an entry; the slots' bounds and the entries'
+    int32 codes read, one float64 element value gathered an entry (the
+    scaled form's ``h`` or the value itself), the sums written."""
+    entries = src.numel()
+    return {**bound(2 * entries, nbytes(seg, src, out) + 8 * entries),
+            "terms": entries}

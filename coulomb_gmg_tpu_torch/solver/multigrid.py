@@ -6,9 +6,9 @@ matrices with refinement-edge and boundary dofs eliminated
 (``assemble_multigrid``, src/step-50.cc:835-933), interface ("edge")
 matrices, prolongation matrices (``MGTransferPrebuilt``), a CG coarse
 solve (``MGCoarseGridIterativeSolver``) and the V-cycle of ``Multigrid`` +
-``PreconditionMG``.  Level matrices are assembled on the host
-(fem/assembly.py:assemble_np, as in the JAX package) and applied on the
-device through the ELL kernel (ops/spmv.py:CSR).
+``PreconditionMG``.  Level and interface matrices are assembled on the
+device (fem/card_assembly.py; the JAX package assembles them on the host)
+and applied there through the ELL kernel (ops/spmv.py:CSR).
 
 The cycle is the Janssen-Kanschat local-smoothing algorithm:
 
@@ -39,10 +39,8 @@ import torch
 from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.utils.timer import spanned
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
-from coulomb_gmg_tpu_torch.mesh.dofs import Constraints, DofInfo, LevelDofs
-from coulomb_gmg_tpu_torch.fem.assembly import (AssemblyPlan, build_plan,
-                                                assemble_np)
-from coulomb_gmg_tpu_torch.fem.integrals import stiffness_cells_np
+from coulomb_gmg_tpu_torch.mesh.dofs import DofInfo, LevelDofs
+from coulomb_gmg_tpu_torch.fem import card_assembly as card
 from coulomb_gmg_tpu_torch.ops.q1 import lagrange_nodes_1d, _lagrange_eval
 from coulomb_gmg_tpu_torch.ops.spmv import CSR
 from coulomb_gmg_tpu_torch.ops.smoothers import (
@@ -51,42 +49,31 @@ from coulomb_gmg_tpu_torch.ops.smoothers import (
 from coulomb_gmg_tpu_torch.solver.cg import cg, host_float
 
 
-def level_constraints(ld: LevelDofs) -> Constraints:
-    """Homogeneous elimination set: refinement-edge + boundary level dofs
-    (deal.II ``boundary_constraints[level]``, src/step-50.cc:853-864)."""
-    ld = ld.host
-    rows = np.where(ld.interface | ld.boundary)[0].astype(np.int64)
-    return Constraints(rows=rows,
-                       indptr=np.zeros(len(rows) + 1, dtype=np.int64),
-                       cols=np.zeros(0, dtype=np.int64),
-                       weights=np.zeros(0), inhomog=np.zeros(len(rows)),
-                       n_dofs=ld.n_dofs)
+def level_matrix(cell2dof: torch.Tensor, edge: torch.Tensor,
+                 bnd: torch.Tensor, k: card.CellMatrices, dtype) -> CSR:
+    """A_l with the refinement-edge (``edge``) and boundary (``bnd``)
+    level dofs eliminated: deal.II's homogeneous
+    ``boundary_constraints[level]`` (src/step-50.cc:853-864)."""
+    p = card.plan(cell2dof, card.eliminated(edge | bnd))
+    data, _ = card.assemble(p, k, dtype=dtype)
+    p.release()
+    return CSR.from_pattern(p.pattern.indptr, p.pattern.indices, data)
 
 
-def _empty_constraints(n: int) -> Constraints:
-    return Constraints(rows=np.zeros(0, dtype=np.int64),
-                       indptr=np.zeros(1, dtype=np.int64),
-                       cols=np.zeros(0, dtype=np.int64),
-                       weights=np.zeros(0), inhomog=np.zeros(0), n_dofs=n)
-
-
-def build_interface_csr(plan: AssemblyPlan, ld: LevelDofs, k_cells,
-                        np_dtype=np.float64, device="cpu") -> CSR:
+def build_interface_csr(cell2dof: torch.Tensor, edge: torch.Tensor,
+                        bnd: torch.Tensor, k: card.CellMatrices,
+                        dtype) -> CSR:
     """Interface ("edge") matrix: raw level assembly masked to entries
     (i at edge, j not at edge, neither at domain boundary), the keep
-    condition of src/step-50.cc:896-920.  The plan may cover only the
-    level cells that touch the refinement edge; its pattern spans the full
-    level dof numbering."""
-    ld = ld.host
-    data, _ = assemble_np(plan, k_cells, None, dtype=np_dtype)
-    rowids = np.repeat(np.arange(plan.pattern.n_rows),
-                       np.diff(plan.pattern.indptr))
-    cols = plan.pattern.indices
-    keep = (ld.interface[rowids] & ~ld.interface[cols]
-            & ~ld.boundary[rowids] & ~ld.boundary[cols])
-    data = np.where(keep, data, 0.0).astype(np_dtype)
-    return CSR.from_pattern(plan.pattern.indptr, plan.pattern.indices, data,
-                            device=device)
+    condition of src/step-50.cc:896-920, the zeros kept in the pattern.
+    ``cell2dof`` may hold only the level cells that touch the refinement
+    edge (``k`` their element matrices); the pattern spans the full level
+    dof numbering."""
+    p = card.plan(cell2dof, card.eliminated(torch.zeros_like(edge)),
+                  keep=lambda r, c: edge[r] & ~edge[c] & ~bnd[r] & ~bnd[c])
+    data, _ = card.assemble(p, k, dtype=dtype)
+    p.release()
+    return CSR.from_pattern(p.pattern.indptr, p.pattern.indices, data)
 
 
 def build_prolongation(forest: Forest, dofs: DofInfo, l: int,
@@ -236,14 +223,16 @@ def build_gmg(forest: Forest, dofs: DofInfo, tables,
               dtype: torch.dtype = torch.float64, jacobi_damping: float = 0.6,
               coarse_rtol: float = 0.0, cache: Optional[dict] = None,
               device="cpu") -> GMGPreconditioner:
-    """Assemble every level on the host and wire the V-cycle on ``device``.
+    """Assemble every level on ``device`` and wire the V-cycle there.
 
     coeff_fn: points (m, dim) tensor -> coefficient tensor, or None for unit
     coefficient.  cache: optional dict carried across adaptive cycles;
     unchanged levels reuse their matrices, smoothers and prolongations.
     smoother "none" builds no smoothers (the TpuGMG path makes its own)."""
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    dofs = dofs.host                 # assembled on the host
+    dev = torch.device(device)
+    levels_d = dofs.levels           # the level matrices: on ``device``
+    dofs = dofs.host                 # the rest: on the host
     matrices, interfaces, prolongs, smoothers = [], [], [], []
     copy_global, copy_level = [], []
     sigs = [_level_signature(forest, ld) if cache is not None else None
@@ -256,28 +245,26 @@ def build_gmg(forest: Forest, dofs: DofInfo, tables,
         if ck is not None and ck in cache:
             A, iface, P, smth = cache[ck]
         else:
-            h = forest.h(l) * np.ones(len(level_ijk))
+            h = torch.full((len(level_ijk),), float(forest.h(l)),
+                           dtype=torch.float64, device=dev)
             coeff_q = None
             if coeff_fn is not None:
                 lower = forest.lower + forest.h(l) * level_ijk
                 pts = (lower[:, None, :]
                        + forest.h(l) * tables.points[None, :, :])
                 coeff_q = coeff_fn(torch.from_numpy(pts)).numpy()
-            k_cells = stiffness_cells_np(tables, h, coeff_q, dtype=np_dtype)
-            plan_lvl = build_plan(ld.cell2dof, level_constraints(ld))
-            data, _ = assemble_np(plan_lvl, k_cells, None, dtype=np_dtype)
-            A = CSR.from_pattern(plan_lvl.pattern.indptr,
-                                 plan_lvl.pattern.indices, data,
-                                 device=device)
+            k = card.cell_matrices(tables, h, coeff_q, dtype)
+            c2d, edge, bnd = (levels_d[l].cell2dof.to(dev),
+                              levels_d[l].interface.to(dev),
+                              levels_d[l].boundary.to(dev))
+            A = level_matrix(c2d, edge, bnd, k, dtype)
             iface = None
             if l > 0 and ld.interface.any():
                 # only cells touching a refinement-edge dof contribute
                 # surviving (edge-row) entries
-                sel = ld.interface[ld.cell2dof].any(axis=1)
-                plan_raw = build_plan(ld.cell2dof[sel],
-                                      _empty_constraints(ld.n_dofs))
-                iface = build_interface_csr(plan_raw, ld, k_cells[sel],
-                                            np_dtype, device)
+                sel = torch.nonzero(edge[c2d].any(1)).squeeze(1)
+                iface = build_interface_csr(c2d[sel], edge, bnd, k.take(sel),
+                                            dtype)
             P = (build_prolongation(forest, dofs, l, np_dtype, device)
                  if l > 0 else None)
             smth = None
