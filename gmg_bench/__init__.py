@@ -5,6 +5,7 @@
 ``BENCHMARK.json``: whole adaptive solves of a seeded NaCl lattice back to
 back for ``--seconds``, then the comparison of a sampled solve with the
 plain float64 reference in ``gmg_bench/reference/``.  Everything that
-belongs to one configuration, traffic mix, per-layer metric or cell limit
-is a file of its own, found by its name (gmg_bench/cells.py).
+belongs to one configuration, traffic mix, per-layer metric, cell limit,
+check or kernel is a file of its own, found by its name
+(gmg_bench/cells.py).
 """

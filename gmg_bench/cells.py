@@ -4,11 +4,17 @@
 file of its own:
 
 * the configuration: the ``file`` of its entry in ``configs``;
-* the traffic mix: ``gmg_bench/traffic/<traffic>.json``;
+* the traffic mix: ``gmg_bench/traffic/<traffic>.json``, with the cells
+  published for it where it names them (``published_cells``);
 * the limits of the comparison: ``gmg_bench/limits/<cell>.json``;
-* each per-layer metric: ``gmg_bench/metrics/<metric>.py``.
+* each check of the comparison that is not one of :data:`BUILT_IN_CHECKS`:
+  ``gmg_bench/checks/<key>.py``, one for each key of the limits;
+* each per-layer metric: ``gmg_bench/metrics/<metric>.py``;
+* each hand kernel whose launches are recorded and whose work is counted:
+  ``gmg_bench/kernels/<kernel>.py``.
 
-A later cell or metric adds files and entries; no file here changes.
+A later cell, check, kernel or metric adds files and entries; no file here
+changes.
 """
 
 from __future__ import annotations
@@ -20,6 +26,10 @@ from dataclasses import dataclass
 
 PKG = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PKG)
+# the checks that gmg_bench/check.py:compare computes itself; every other
+# key of a cell's limits but ``readings`` names a file of gmg_bench/checks/
+BUILT_IN_CHECKS = ("residual_max", "mesh_faults", "cells_off_published",
+                   "dof_mismatch", "failed_solves")
 
 
 @dataclass
@@ -29,6 +39,7 @@ class Cell:
     config: dict          # the configuration file's contents
     traffic: dict         # the traffic mix's file
     limits: dict          # the comparison's limits for this cell
+    checks: dict          # read(ctx) of each check of the limits' own
     end_to_end: list      # the BENCHMARK.json entries this cell reports
     per_layer: list
     root: str = ROOT      # the checkout the files were found in
@@ -66,6 +77,7 @@ def find_cell(name: str, root: str = ROOT) -> Cell:
     limits = _json(os.path.join(pkg, "limits", name + ".json"))
     return Cell(name=name, chips=int(w["chips"]), config=config,
                 traffic=traffic, limits=limits,
+                checks=check_readers(limits, root),
                 end_to_end=[m for m in bench["end_to_end"]
                             if _reports(m, name)],
                 per_layer=[m for m in bench["per_layer"]
@@ -73,11 +85,44 @@ def find_cell(name: str, root: str = ROOT) -> Cell:
                 root=root)
 
 
-def metric_reader(name: str, root: str = ROOT):
-    """``read`` of ``gmg_bench/metrics/<name>.py``."""
-    path = os.path.join(root, "gmg_bench", "metrics", name + ".py")
+def _module(kind: str, name: str, root: str):
+    """The module ``gmg_bench/<kind>/<name>.py`` of the benchmark at
+    ``root``; FileNotFoundError if there is none."""
+    path = os.path.join(root, "gmg_bench", kind, name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {path}")
     spec = importlib.util.spec_from_file_location(
-        "gmg_bench.metrics._reader_" + name.replace(".", "_"), path)
+        f"gmg_bench.{kind}._file_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, root: str = ROOT):
+    """``read`` of ``gmg_bench/metrics/<name>.py``."""
+    return _module("metrics", name, root).read
+
+
+def own_checks(limits: dict) -> list:
+    """The keys of ``limits`` that name a file of gmg_bench/checks/: all
+    but ``readings`` and the built-in checks."""
+    return [k for k in limits
+            if k != "readings" and k not in BUILT_IN_CHECKS]
+
+
+def check_readers(limits: dict, root: str = ROOT) -> dict:
+    """``{key: read}`` of ``gmg_bench/checks/<key>.py`` for every key of
+    :func:`own_checks`; a key without its file raises FileNotFoundError, so
+    that it never passes."""
+    return {k: _module("checks", k, root).read for k in own_checks(limits)}
+
+
+def kernels(root: str = ROOT) -> dict:
+    """``{kernel: module}`` of every ``gmg_bench/kernels/<kernel>.py``: the
+    program's launcher (``MODULE``, ``LAUNCHER``), the names of its device
+    functions (``DEVICE``) and the least time its work takes
+    (``bound_s(args, kw)``)."""
+    pkg = os.path.join(root, "gmg_bench", "kernels")
+    names = sorted(f[:-3] for f in os.listdir(pkg)
+                   if f.endswith(".py") and not f.startswith("_"))
+    return {n: _module("kernels", n, root) for n in names}

@@ -49,7 +49,7 @@ def control_snapshots(snaps: list, pos, q, settings: dict, dtype, device,
     P = torch.as_tensor(pos, dtype=torch.float64, device=dev)
     Q = torch.as_tensor(q, dtype=torch.float64, device=dev)
     r_c = settings["r_c"]
-    cut = settings["nonzero_radius"] * r_c
+    cut = check.density_cut(settings, h0)
     members = member_table(reps, lower, h0, P, cut)
     out, its = [], []
     for s in snaps:
@@ -83,7 +83,7 @@ def main(argv=None) -> int:
     solver.solve(WARMUP_N, np.arange(8 * WARMUP_N ** 3))
     seeds = [int(s) for s in args.seeds.split(",") if s]
     controls = {int(s) for s in args.control_seeds.split(",") if s}
-    published = cell.config.get("published_cells")
+    published = inputs.published_cells(cell.config, cell.traffic)
     rows = []
     for seed in seeds:
         order = inputs.Orders(seed, 8 * n ** 3).next()
@@ -93,7 +93,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         checks, correct = check.compare(snaps, atoms.positions,
                                         atoms.charges, settings, published,
-                                        cell.limits, 0, device)
+                                        cell.limits, 0, device, seed=seed,
+                                        readers=cell.checks)
         row = {"seed": seed, "solve_s": rec["wall_s"], "cells": rec["cells"],
                "cg": rec["cg"], "program": checks["residual_max"]["value"],
                "correct": correct, "compare_s": time.perf_counter() - t0}
@@ -104,7 +105,7 @@ def main(argv=None) -> int:
                 DTYPES[args.dtype], device, args.maxiter)
             ctl_checks, row["control_correct"] = check.compare(
                 ctl, atoms.positions, atoms.charges, settings, published,
-                cell.limits, 0, device)
+                cell.limits, 0, device, seed=seed, readers=cell.checks)
             row["control"] = ctl_checks["residual_max"]["value"]
             row["control_dtype"] = args.dtype
             row["control_s"] = time.perf_counter() - t0

@@ -2,11 +2,14 @@
 configuration and traffic mix.
 
 A configuration file holds the published study's settings
-(``settings``: keys of the program's ``Config``) and its lattice
-(``lattice``: a rock-salt lattice of ``8 n^3`` atoms, charges +-1, spacing
-0.5, box ``[0, n]^3``).  A traffic file holds the mix: the settings it
-overrides (``overrides``); every solve lists the atoms in an order of its
-own, drawn from the seed, as a LAMMPS file may list them in any order.
+(``settings``: keys of the program's ``Config``), its lattice (``lattice``:
+a rock-salt lattice of ``8 n^3`` atoms, charges +-1, spacing 0.5, box
+``[0, n]^3``) and the active cells that the study published for each cycle
+(``published_cells``).  A traffic file holds the mix: the settings it
+overrides (``overrides``) and, where these change the meshes, the cells
+published for it (``published_cells``: a list, or null where none are);
+every solve lists the atoms in an order of its own, drawn from the seed,
+as a LAMMPS file may list them in any order.
 """
 
 from __future__ import annotations
@@ -18,6 +21,15 @@ import torch
 def settings(config: dict, traffic: dict) -> dict:
     """The run's settings: the configuration's, then the mix's."""
     return {**config["settings"], **traffic.get("overrides", {})}
+
+
+def published_cells(config: dict, traffic: dict):
+    """The active cells per cycle that a run is held to: the traffic's
+    ``published_cells`` where it has the key (None: nothing published for
+    this mix), else the configuration's."""
+    if "published_cells" in traffic:
+        return traffic["published_cells"]
+    return config.get("published_cells")
 
 
 def lattice(n: int):

@@ -9,14 +9,10 @@ card's power limit beside them).  An FMA counts 2 operations, an
 once.  A kernel's share of its roofline is the sum of the bounds
 of its launches over the sum of their device times.
 
-Copied from ``coulomb_gmg_tpu_torch/roofline.py`` with one difference: the
-tile kernel's work is counted from the cells and the atoms alone.  Its
-terms are the member (point, atom) pairs of the locality cut, each cell's
-members found here from its level-0 ancestor and the atoms, and its bytes
-are the atoms, the quadrature points' coordinates and the output.  The
-program's copy takes the bytes of every operand, the plan arrays
-(``blk_ptr``, ``atile``, ``anc``) with them, so a change of the plan would
-move the bound; here it does not.
+Each kernel's work is counted by its own file, ``gmg_bench/kernels/
+<kernel>.py`` (``bound_s``); here is the arithmetic they share.  Copied
+from ``coulomb_gmg_tpu_torch/roofline.py``; where a count departs from the
+program's copy, the kernel's file says how and why.
 """
 
 from __future__ import annotations
@@ -29,19 +25,12 @@ PEAK_FP32 = 67e12         # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12      # HBM3 bytes/s
 OPS_DENSITY = 12          # 3 differences, r^2 (mul + 2 FMA), scale, exp, FMA
 CHUNK = 1 << 24           # pairs per step of a count
+STEP = 2048               # points per step of pairs_within
 FAR_AWAY = 1.0e5          # coordinates beyond this are padding
 
 
 def bound_s(ops: float, n_bytes: float) -> float:
     return max(ops / PEAK_FP32, n_bytes / PEAK_BYTES)
-
-
-def ell_spmv(cols, vals: torch.Tensor, x: torch.Tensor, nnz: int) -> float:
-    """One FMA, its value and a 4-byte column per nonzero; x read, y
-    written."""
-    rows = cols.n_rows if hasattr(cols, "n_rows") else cols.shape[-1]
-    return bound_s(2 * nnz, nnz * (4 + vals.element_size())
-                   + (x.numel() + rows) * x.element_size())
 
 
 def member_counts(lower: torch.Tensor, h0: float, pos: torch.Tensor,
@@ -82,41 +71,57 @@ def member_counts(lower: torch.Tensor, h0: float, pos: torch.Tensor,
     return counts
 
 
-def tile_density(args, kw) -> float:
-    """12 operations per member (point, atom) term; the atoms, the points'
-    coordinates and the output."""
-    _, _, _, anc, atoms = args
-    n_q = kw["n_q"]
-    lower = anc.T
-    real = lower.abs().amax(-1) < FAR_AWAY
-    X = atoms[:3].T
-    live = X.abs().amax(-1) < FAR_AWAY
-    members = int(member_counts(lower[real], kw["h0"], X[live],
-                                kw["cut2"]).sum())
-    n_out = kw["n_out"]
-    n_bytes = int(live.sum()) * 16 + (n_out * n_q * 3 + n_out * n_q) * 4
-    return bound_s(OPS_DENSITY * members * n_q, n_bytes)
+def pairs_within(points: torch.Tensor, atoms: torch.Tensor,
+                 r2: float) -> int:
+    """The (point, atom) pairs closer than ``sqrt(r2)`` (strictly), by
+    float64 differences, as a test of every pair would count them.  The
+    points are sorted into boxes of a quarter of that radius and taken
+    ``STEP`` at a time: an atom whose farthest distance from the step's
+    bounding box is under the radius counts once for each of its points,
+    one whose nearest distance is not under it counts for none, and only
+    the atoms between are tested pair by pair.  Rounding is monotone, so
+    the box tests agree with the pair test."""
+    P = points.to(torch.float64)
+    X = atoms.to(torch.float64)
+    n, A = P.shape[0], X.shape[0]
+    if n == 0 or A == 0:
+        return 0
+    pitch = 0.25 * math.sqrt(r2)
+    box = torch.floor((P - P.amin(0)) / pitch).to(torch.int64)
+    side = box.amax(0) + 1
+    key = (box[:, 0] * side[1] + box[:, 1]) * side[2] + box[:, 2]
+    P = P[torch.argsort(key)]
+    total = torch.zeros((), dtype=torch.int64, device=P.device)
+    for s in range(0, n, STEP):
+        p = P[s:s + STEP]
+        lo, hi = p.amin(0), p.amax(0)
+        far = torch.maximum(X - lo, hi - X)
+        gap = torch.clamp(torch.maximum(lo - X, X - hi), min=0.0)
+        inside = (far * far).sum(-1) < r2
+        total += inside.sum() * p.shape[0]
+        c = X[((gap * gap).sum(-1) < r2) & ~inside]
+        sub = max(1, CHUNK // p.shape[0])
+        for t in range(0, c.shape[0], sub):
+            d = p[:, None, :] - c[None, t:t + sub]
+            total += ((d * d).sum(-1) < r2).sum()
+    return int(total)
 
 
 def share(ctx: dict, kernel: str):
-    """Percent of the roofline of ``kernel`` over the traced solve; None
-    where it made no launch or the trace holds no device time for it."""
+    """Percent of the roofline of ``kernel`` over the traced solve: the
+    bounds of its recorded launches (its file's ``bound_s``, a captured
+    launch once a replay) over its device time; None where it made no
+    launch or the trace holds no device time for it."""
     tr = ctx.get("trace")
     if not tr:
         return None
     t = tr["kernel_s"].get(kernel, 0.0)
-    calls = tr["log"].calls.get(kernel, [])
+    log = tr["log"]
+    calls = log.calls.get(kernel, [])
     if t <= 0 or not calls:
         return None
-    weight = tr["log"].weight
+    bound = log.kernels[kernel].bound_s
     total = 0.0
-    if kernel == "ell_spmv":
-        nnz = {}
-        for (cols, vals, x), _, graph in calls:
-            if id(vals) not in nnz:
-                nnz[id(vals)] = int(torch.count_nonzero(vals))
-            total += weight(graph) * ell_spmv(cols, vals, x, nnz[id(vals)])
-    else:
-        for args, kw, graph in calls:
-            total += weight(graph) * tile_density(args, kw)
+    for args, kw, graph in calls:
+        total += log.weight(graph) * bound(args, kw)
     return 100.0 * total / t

@@ -2,11 +2,14 @@
 
     rho(x) = 4 pi / (r_c^3 pi^1.5) sum_a q_a exp(-|x - X_a|^2 / r_c^2)
 
-under the locality cut of the published study ("Flag for RHS evaluation
-optimization"): a cell sums the atoms that are members of its level-0
-ancestor, those within ``cut`` (``nonzero_radius * r_c``) of any vertex of
-that base cell, strictly.  A refined cell keeps its ancestor's members, as
-the reference attaches atoms to a cell and hands them to its children.
+over the members of each cell: a cell sums the atoms that are members of
+its level-0 ancestor, those within ``cut`` of any vertex of that base
+cell, strictly.  A refined cell keeps its ancestor's members, as the
+reference attaches atoms to a cell and hands them to its children.  Under
+the locality cut of the published study ("Flag for RHS evaluation
+optimization") ``cut`` is ``nonzero_radius * r_c``; without it, a radius
+that takes in every atom that adds to a float64 sum
+(gmg_bench/check.py:density_cut).
 """
 
 from __future__ import annotations

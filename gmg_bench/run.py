@@ -46,6 +46,8 @@ import numpy as np  # noqa: E402
 from gmg_bench import cells, inputs  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "coulomb_gmg_tpu")
+# the scalar outputs of each cycle of ``run()`` that a snapshot keeps
+SCALARS = ("n_dofs", "threshold", "cg_iterations", "energy_norm_error")
 WARMUP_N = 1      # the warm-up solve's lattice: 8 n^3 = 8 atoms
 MIN_SOLVES = 2    # the least number of solves a window holds
 
@@ -90,7 +92,9 @@ class Snapshots:
     """What the sampled solve produced in each cycle, taken when its
     estimate starts: the active cells, the solution and the DoF positions,
     each copied to the host as it is taken, so that no card memory is held
-    past the cycle that made it."""
+    past the cycle that made it; once the solve has ended, each cycle's
+    scalar outputs of ``run()`` join them (:data:`SCALARS`, None where the
+    program computed none)."""
 
     def __init__(self, sim):
         import torch
@@ -109,6 +113,10 @@ class Snapshots:
                                 "positions": host(pos)})
             return orig()
         sim.estimate_and_mark = estimate_and_mark
+
+    def add_results(self, res: list) -> None:
+        for shot, r in zip(self.cycles, res):
+            shot.update({k: r.get(k) for k in SCALARS})
 
 
 class Solver:
@@ -149,6 +157,8 @@ class Solver:
         if self.torch.device(self.device).type == "cuda":
             self.torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if shots is not None:
+            shots.add_results(res)
         stages = {}
         for r in res:
             for k, v in r["stages"].items():
@@ -189,7 +199,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
 
     orders = inputs.Orders(seed, 8 * n ** 3)
     sample = inputs.sample_index(seed, MIN_SOLVES)
-    published = cell.config.get("published_cells")
+    published = inputs.published_cells(cell.config, cell.traffic)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     solves, shots, sampled_atoms = [], None, None
@@ -217,7 +227,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
 
     traced, metrics = None, {}
     if trace:
-        traced = traced_solve(solver, n, orders.next())
+        traced = traced_solve(solver, n, orders.next(), cell.root)
         ctx = {"solves": solves, "window_s": window, "trace": traced}
         for m in cell.per_layer:
             v = cells.metric_reader(m["name"], cell.root)(ctx)
@@ -231,7 +241,8 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     t_cmp = time.perf_counter()
     checks, correct = check.compare(shots, sampled_atoms.positions,
                                     sampled_atoms.charges, settings,
-                                    published, cell.limits, failed, device)
+                                    published, cell.limits, failed, device,
+                                    seed=seed, readers=cell.checks)
     log(f"comparison of solve {sample}: {time.perf_counter() - t_cmp:.3f} s")
 
     if not trace and on_card:
@@ -254,20 +265,21 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     return result, checks
 
 
-def traced_solve(solver: Solver, n: int, order) -> dict:
-    """One more whole solve under the profiler, every hand-kernel launch
-    recorded; the trace reduced (gmg_bench/trace.py)."""
+def traced_solve(solver: Solver, n: int, order, root: str) -> dict:
+    """One more whole solve under the profiler, every launch of the kernels
+    of the benchmark at ``root`` recorded; the trace reduced
+    (gmg_bench/trace.py)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from gmg_bench import trace
-    log_ = trace.LaunchLog()
+    log_ = trace.LaunchLog(root)
     span = trace.SPAN + "solve"
     with log_, profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         with record_function(span):
             rec, _, _ = solver.solve(n, order, spans=True)
     t0 = time.perf_counter()
-    out = trace.reduce(prof, span)
+    out = trace.reduce(prof, span, log_.kernels)
     del prof
     out["log"] = log_
     out["record"] = rec

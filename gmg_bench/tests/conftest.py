@@ -30,13 +30,15 @@ def card():
 def make_root(path, cycles: int = 2) -> str:
     """A benchmark root at ``path`` with the one cell ``tiny.production``:
     the 64k configuration's settings on the 8-atom lattice, ``cycles``
-    cycles, the production mix, this package's metrics, and the limits
-    of ``nacl64k_f32.production``."""
+    cycles, the production mix, this package's metrics, checks and
+    kernels, and the limits of ``nacl64k_f32.production``."""
     pkg = os.path.join(path, "gmg_bench")
     for d in ("configs", "traffic", "limits"):
         os.makedirs(os.path.join(pkg, d), exist_ok=True)
-    shutil.copytree(os.path.join(cells.PKG, "metrics"),
-                    os.path.join(pkg, "metrics"), dirs_exist_ok=True)
+    for d in ("metrics", "checks", "kernels"):
+        shutil.copytree(os.path.join(cells.PKG, d), os.path.join(pkg, d),
+                        dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     with open(os.path.join(cells.PKG, "configs", "nacl64k_f32.json")) as fh:
         cfg = json.load(fh)
     cfg["name"] = "tiny"

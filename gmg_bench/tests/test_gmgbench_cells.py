@@ -16,9 +16,14 @@ def test_every_cell_of_the_benchmark_has_its_files():
         cell = cells.find_cell(w["name"])
         assert cell.config["name"] == w["config"]
         assert "residual_max" in cell.limits
+        assert set(cell.checks) == set(cell.limits) - {"readings"} - set(
+            cells.BUILT_IN_CHECKS)
         for m in cell.per_layer:
             assert callable(cells.metric_reader(m["name"]))
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
+    for k in cells.kernels().values():
+        assert k.MODULE.startswith("coulomb_gmg_tpu_torch.") and k.DEVICE
+        assert callable(k.bound_s) and isinstance(k.LAUNCHER, str)
 
 
 def test_a_new_cell_and_metric_found_by_name(tiny_root):

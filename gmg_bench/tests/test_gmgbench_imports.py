@@ -1,5 +1,6 @@
 """Nothing the benchmark runs loads JAX or the JAX package: every module
-of ``gmg_bench`` and the program's modules it drives are imported in a
+of ``gmg_bench``, its metric readers and kernel files, and the program's
+modules it drives (the kernels' launchers' among them) are imported in a
 fresh process, and each loaded module's top-level name is compared whole
 (``coulomb_gmg_tpu_torch`` begins with ``coulomb_gmg_tpu``)."""
 
@@ -28,6 +29,7 @@ def test_nothing_the_benchmark_runs_loads_jax():
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "from gmg_bench import cells\n"
         f"for r in {readers!r}: cells.metric_reader(r)\n"
+        "for k in cells.kernels().values(): importlib.import_module(k.MODULE)\n"
         "from gmg_bench.run import forbidden_modules\n"
         "print(json.dumps([sorted({m.split('.')[0] for m in sys.modules}),"
         " forbidden_modules()]))\n")

@@ -2,21 +2,22 @@
 solve under ``torch.profiler``, with every hand-kernel launch of it
 recorded by the benchmark's own wrappers.
 
-* :class:`LaunchLog` wraps the program's CUDA launchers of the kernels
-  that a cell reads (``ell_mv_cuda``, ``tile_density_cuda``: each wrapper
-  of the program looks them up in its module at every call) and ``torch.cuda.CUDAGraph``.  A launch made while
-  a graph is captured counts once for every replay of that graph, any
-  other once.  The arguments are kept; the work is counted after the
-  window (gmg_bench/metrics/_roofline.py), so no stage pays for it.
+* :class:`LaunchLog` wraps the program's CUDA launcher of every kernel
+  of ``gmg_bench/kernels/`` (``MODULE``, ``LAUNCHER``: each wrapper of the
+  program looks its launcher up in its module at every call) and
+  ``torch.cuda.CUDAGraph``.  A launch made while a graph is captured counts
+  once for every replay of that graph, any other once.  The arguments are
+  kept; the work is counted after the window (each kernel's ``bound_s``,
+  gmg_bench/metrics/_roofline.py:share), so no stage pays for it.
 * :class:`Spans` wraps the ``Simulation``'s stage methods of the traced
   solve in ``record_function`` spans named after them, which name the idle
   gaps of the device.
 * :func:`reduce` turns the profiler's events into the device's busy
   seconds (the union of kernel, copy and set intervals), the window,
-  the device time of each hand kernel (by the names of its device
-  functions), and the breakdown: the device operations that took most
-  time and the longest idle gaps, each named by the spans and the host
-  operation running at its middle.
+  the device time of each kernel of the log (by the names of its device
+  functions, ``DEVICE``), and the breakdown: the device operations that
+  took most time and the longest idle gaps, each named by the spans and
+  the host operation running at its middle.
 """
 
 from __future__ import annotations
@@ -28,24 +29,22 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-# each hand kernel: (module, launcher) of the program, device functions
-HAND = {
-    "ell_spmv": ("coulomb_gmg_tpu_torch.ops.ell", "ell_mv_cuda",
-                 ("ell_spmv_kernel", "ell_sliced_kernel")),
-    "tile_density": ("coulomb_gmg_tpu_torch.ops.tile_density",
-                     "tile_density_cuda", ("tile_density_kernel",)),
-}
+from gmg_bench import cells
+
 STAGE_METHODS = ("setup", "assemble_system", "assemble_multigrid", "solve",
                  "estimate_and_mark", "refine")
 SPAN = "gmg_bench."
 
 
 class LaunchLog(contextlib.AbstractContextManager):
-    """Every hand-kernel launch made inside the ``with`` block:
-    ``calls[kernel]`` lists ``(args, kwargs, graph)``, ``graph`` the
-    record ``{"replays": n}`` of the graph it was captured into, or None."""
+    """Every launch of the kernels of ``gmg_bench/kernels/`` of the
+    benchmark at ``root`` made inside the ``with`` block: ``calls[kernel]``
+    lists ``(args, kwargs, graph)``, ``graph`` the record ``{"replays": n}``
+    of the graph it was captured into, or None; ``kernels[kernel]`` is the
+    kernel's file."""
 
-    def __init__(self):
+    def __init__(self, root: str = cells.ROOT):
+        self.kernels = cells.kernels(root)
         self.calls = defaultdict(list)
         self._saved = []
         self._capturing = None
@@ -54,11 +53,11 @@ class LaunchLog(contextlib.AbstractContextManager):
         return 1 if graph is None else graph["replays"]
 
     def __enter__(self):
-        for kernel, (modname, attr, _) in HAND.items():
-            mod = importlib.import_module(modname)
-            orig = getattr(mod, attr)
-            self._saved.append((mod, attr, orig))
-            setattr(mod, attr, self._recorder(kernel, orig))
+        for kernel, spec in self.kernels.items():
+            mod = importlib.import_module(spec.MODULE)
+            orig = getattr(mod, spec.LAUNCHER)
+            self._saved.append((mod, spec.LAUNCHER, orig))
+            setattr(mod, spec.LAUNCHER, self._recorder(kernel, orig))
         G = torch.cuda.CUDAGraph
         for attr, make in (("capture_begin", self._begin),
                            ("capture_end", self._end),
@@ -152,9 +151,10 @@ def _merge(iv: np.ndarray) -> np.ndarray:
     return np.stack([starts, ends[last]], 1)
 
 
-def reduce(prof, window_span: str, top: int = 10) -> dict:
-    """busy_s, window_s, hand kernels' device seconds and the breakdown
-    of one profiled window, the span ``window_span`` around it."""
+def reduce(prof, window_span: str, kernels: dict, top: int = 10) -> dict:
+    """busy_s, window_s, the device seconds of each of ``kernels`` (the
+    files of gmg_bench/kernels/ by name) and the breakdown of one profiled
+    window, the span ``window_span`` around it."""
     ev = _events(prof)
     win = [(s, e) for n, s, e, dev in ev if not dev and n == window_span]
     if not win:
@@ -167,11 +167,12 @@ def reduce(prof, window_span: str, top: int = 10) -> dict:
     by_name = defaultdict(int)
     for n, s, e in dev:
         by_name[n] += e - s
-    kernels = {k: sum(t for n, t in by_name.items()
-                      if any(f in n for f in fns)) / 1e9
-               for k, (_, _, fns) in HAND.items()}
-    launches = {k: sum(1 for n, _, _ in dev if any(f in n for f in fns))
-                for k, (_, _, fns) in HAND.items()}
+    kernel_s = {k: sum(t for n, t in by_name.items()
+                       if any(f in n for f in spec.DEVICE)) / 1e9
+                for k, spec in kernels.items()}
+    launches = {k: sum(1 for n, _, _ in dev
+                       if any(f in n for f in spec.DEVICE))
+                for k, spec in kernels.items()}
     edges = np.r_[w0, busy.reshape(-1), w1].reshape(-1, 2)
     gaps = edges[edges[:, 1] > edges[:, 0]]
     gaps = gaps[np.argsort(gaps[:, 0] - gaps[:, 1], kind="stable")][:top]
@@ -191,7 +192,7 @@ def reduce(prof, window_span: str, top: int = 10) -> dict:
         idle.append([name[:120], (g1 - g0) / 1e9])
     device_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"busy_s": busy_ns / 1e9, "window_s": (w1 - w0) / 1e9,
-            "kernel_s": kernels, "kernel_events": launches,
+            "kernel_s": kernel_s, "kernel_events": launches,
             "breakdown": {"device_ops": [[n[:120], t / 1e9]
                                          for n, t in device_ops],
                           "idle_gaps": idle}}
