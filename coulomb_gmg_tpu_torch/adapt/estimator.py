@@ -30,6 +30,7 @@ from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.dofs import HostView
 from coulomb_gmg_tpu_torch.mesh.forest import Forest, active_level_index
 from coulomb_gmg_tpu_torch.ops.q1 import face_tables, _basis_at
+from coulomb_gmg_tpu_torch.utils.timer import span
 
 
 @dataclass
@@ -400,14 +401,16 @@ def estimate(forest: Forest, cell2dof, u, rho_q,
     if use_volume_term and rho_q is not None:
         # volume residual: (lap u_h + 4 pi rho~)^2; lap u_h == 0 for Q1 on
         # axis-aligned boxes, nonzero for higher degree
-        temp = (4.0 * np.pi) * f64(rho_q)
-        if degree > 1:
-            from coulomb_gmg_tpu_torch.ops.q1 import lap_basis_at
-            lap = lap_basis_at(dim, degree, np.asarray(rhs_points_ref))
-            temp = temp + _products(ucell, lap) / (h * h)[:, None]
-        vol = _products(temp * temp, np.asarray(rhs_weights)[None, :])[:, 0]
-        vol = vol * _power(h, dim)
-        est2 = est2 + (diam * diam) * vol
+        with span("estimate.volume"):
+            temp = (4.0 * np.pi) * f64(rho_q)
+            if degree > 1:
+                from coulomb_gmg_tpu_torch.ops.q1 import lap_basis_at
+                lap = lap_basis_at(dim, degree, np.asarray(rhs_points_ref))
+                temp = temp + _products(ucell, lap) / (h * h)[:, None]
+            vol = _products(temp * temp,
+                            np.asarray(rhs_weights)[None, :])[:, 0]
+            vol = vol * _power(h, dim)
+            est2 = est2 + (diam * diam) * vol
 
     return torch.sqrt(est2)
 

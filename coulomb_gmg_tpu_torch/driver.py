@@ -742,6 +742,9 @@ class Simulation:
                                                        self._face_plan, omap)
             self.forest = new
             self.solution = u_new
+            # free the old mesh's DoF records now, not at the collector's
+            # next run, so that the card's peak is the same in every run
+            old.drop_dofs()
         self.setup()
         self.solution = set_zero(self.constraints, self.solution)
 

@@ -456,6 +456,16 @@ class Forest:
     def dofs(self):
         return self.dofs_of(1)
 
+    def drop_dofs(self) -> None:
+        """Forget the cached DoF records and their host views.  A record
+        refers to its forest and to its host view, and each of them back to
+        it, so a forest that has been replaced would keep the records' card
+        memory until the interpreter's cycle collector next ran."""
+        for d in self._dof_cache.values():
+            for rec in (d, *d.levels):
+                rec.__dict__.pop("host", None)
+        self._dof_cache.clear()
+
     # --------------------------------------------------------- level mesh
 
     @cached_property

@@ -37,6 +37,7 @@ from typing import Optional
 from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch import kernels
+from coulomb_gmg_tpu_torch.utils.timer import count
 
 # The smallest float32 t from which the card's float32 expf(-t) is +0 for
 # every float32 t' >= t: the IEEE underflow point, ln 2^-150.  The expf of
@@ -183,9 +184,11 @@ def density_bruteforce(forest: Forest, points_ref, positions, charges,
     """rho~ per (cell, reference quadrature point) over all atoms, with the
     4*pi normalization (src/step-50.cc:553-560), as a ``(c_pad, n_q)``
     float32 tensor on ``device``; rows past ``n_cells`` are exactly zero
-    (the contract of StencilGMG.assemble_rhs)."""
+    (the contract of StencilGMG.assemble_rhs).  Counts its (point, atom)
+    pairs in the run's counter ``density_pairs``."""
     args, kw = density_operands(forest, points_ref, positions, charges, r_c,
                                 device)
+    count("density_pairs", forest.n_cells * len(points_ref) * len(charges))
     return dense_density(*args, n_out=int(c_pad), **kw)
 
 

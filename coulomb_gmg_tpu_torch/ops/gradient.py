@@ -25,6 +25,7 @@ import math
 import torch
 
 from coulomb_gmg_tpu_torch import kernels
+from coulomb_gmg_tpu_torch.utils.timer import count
 
 FAR = 4.5                 # r / r_c from which the bracket is exactly -1
 _SIG = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
@@ -94,7 +95,9 @@ def exact_gradient_cuda(points: torch.Tensor, atoms: torch.Tensor,
 def exact_gradient(points: torch.Tensor, atoms: torch.Tensor,
                    r_c: float) -> torch.Tensor:
     """Exact-solution gradient at ``points``: the CUDA kernel on the card,
-    the plain version only for CPU tensors."""
+    the plain version only for CPU tensors.  Counts its (point, atom) pairs
+    in the run's counter ``gradient_pairs``."""
+    count("gradient_pairs", points.shape[0] * atoms.shape[0])
     if points.device.type == "cpu":
         return exact_gradient_plain(points, atoms, r_c)
     return exact_gradient_cuda(points, atoms, r_c)

@@ -26,6 +26,7 @@ from coulomb_gmg_tpu_torch.ops.q1 import ElementTables, basis_at
 from coulomb_gmg_tpu_torch.ops.density import pack_atoms
 from coulomb_gmg_tpu_torch.ops.gradient import (exact_gradient,
                                                 exact_gradient_plain)
+from coulomb_gmg_tpu_torch.utils.timer import span
 
 
 def locate_cells(forest: Forest, points: np.ndarray) -> np.ndarray:
@@ -105,10 +106,13 @@ def energy_norm_error(forest: Forest, tables: ElementTables, u,
     ``dtype`` float32 is the production path (the exact gradient through
     :func:`exact_gradient`, the kernel on the card); float64 evaluates it
     with the plain version (the kernel is float32 only) and is the oracle
-    of the float32 path.  See :func:`energy_norm_error_sq`."""
-    return float(torch.sqrt(energy_norm_error_sq(
-        forest, tables, u, positions, charges, r_c, device, dtype=dtype,
-        chunk=chunk)))
+    of the float32 path.  See :func:`energy_norm_error_sq`; here the span
+    ``fe.gradient`` ends with the result's read, so it holds the device's
+    work."""
+    ops, grad_fn = enorm_operands(forest, tables, u, positions, charges,
+                                  device, dtype)
+    with span("fe.gradient"):
+        return float(torch.sqrt(enorm_loop(*ops, r_c, chunk, grad_fn)))
 
 
 def energy_norm_error_sq(forest: Forest, tables: ElementTables, u,
@@ -117,10 +121,23 @@ def energy_norm_error_sq(forest: Forest, tables: ElementTables, u,
                          chunk: int = 1 << 18,
                          cells: range = None) -> torch.Tensor:
     """The squared error of :func:`energy_norm_error` summed over the cells
-    ``cells`` (default all), a float64 0-dim tensor on ``device``.
+    ``cells`` (default all), a float64 0-dim tensor on ``device``: the
+    operands of :func:`enorm_operands`, and :func:`enorm_loop` over them in
+    chunks of ``chunk`` cells (the span ``fe.gradient``)."""
+    ops, grad_fn = enorm_operands(forest, tables, u, positions, charges,
+                                  device, dtype, cells)
+    with span("fe.gradient"):
+        return enorm_loop(*ops, r_c, chunk, grad_fn)
 
-    The cells' DoF values, sizes and corners go to the device once, and
-    :func:`enorm_loop` sums over them in chunks of ``chunk`` cells."""
+
+def enorm_operands(forest: Forest, tables: ElementTables, u, positions,
+                   charges, device, dtype: torch.dtype,
+                   cells: range = None) -> tuple:
+    """(the operands of :func:`enorm_loop` but ``r_c``, ``chunk`` and the
+    gradient, on ``device``; the exact gradient for ``dtype``): the DoF
+    values, sizes and corners of the cells ``cells`` (default all), the
+    rule's tables and the packed atoms, sent to the device once (the span
+    ``fe.operands``)."""
     dev = torch.device(device)
     cells = range(forest.n_cells) if cells is None else cells
     grad_fn = exact_gradient if dtype == torch.float32 else \
@@ -130,13 +147,14 @@ def energy_norm_error_sq(forest: Forest, tables: ElementTables, u,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
 
     sel = slice(cells.start, cells.stop)
-    c2d = forest.dofs_of(tables.degree).cell2dof[sel].to(dev)
-    u_d = put(np.asarray(u, np.float64))
-    return enorm_loop(u_d[c2d], put(forest.cell_h()[sel]),
-                      put(forest.cell_lower()[sel]), put(tables.dphi),
-                      put(tables.points), put(tables.weights, torch.float64),
-                      pack_atoms(positions, charges, dev, dtype), r_c, chunk,
-                      grad_fn)
+    with span("fe.operands"):
+        c2d = forest.dofs_of(tables.degree).cell2dof[sel].to(dev)
+        u_d = put(np.asarray(u, np.float64))
+        ops = (u_d[c2d], put(forest.cell_h()[sel]),
+               put(forest.cell_lower()[sel]), put(tables.dphi),
+               put(tables.points), put(tables.weights, torch.float64),
+               pack_atoms(positions, charges, dev, dtype))
+    return ops, grad_fn
 
 
 def enorm_loop(ucell: torch.Tensor, h: torch.Tensor, lower: torch.Tensor,
