@@ -5,7 +5,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require a CUDA card; print the nvidia-smi name and power limit;
-2. build: compile the five hand kernels (coulomb_gmg_tpu_torch/csrc) with
+2. build: compile the six hand kernels (coulomb_gmg_tpu_torch/csrc) with
    nvcc, one process per source, all started together;
 3. kernel vs plain PyTorch version on the card, at main-path shapes (the
    8,000-atom cycle-0 mesh: density plan, finest level operator, RHS and
@@ -36,21 +36,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    exact-gradient and ELL kernels (not the tile kernel, nor the segment
    sum) must have been launched by that run;
 6. the host-assembled path at full width: the same 8,000-atom study in the
-   reference's own precision (float64, host CSR assembly, the level-matrix
-   GMG with the host SSOR smoother and its coarse CG, the float64 list
+   reference's own precision (float64, card CSR assembly, the level-matrix
+   GMG with the SSOR smoother and its coarse CG, the float64 list
    density), ``production_scaling_config(10, dtype="float64",
    device_operators="off")``.  The published cells must come out exactly,
    every cycle at a true float64 residual of 1e-8 * ||b||, the solution
    finite, the earlier runs' CG counts, the ELL kernel (float64 launches
-   among them) and the CSR assembly's segment sum launched and the tile
-   kernel not; it prints the stage
-   seconds, the SSOR host seconds, the coarse CG iterations per V-cycle
-   and the peak device memory.  Then the ELL layouts on the last cycle's
-   float64 system (K = 51): the host build of the sliced layout beside
-   the padded reference's, and the sliced kernel timed beside the padded
-   kernel on the same operator and beside ``torch.mv`` on a float64 CSR
-   copy (cuSPARSE), each timed as CUDA graphs of back-to-back calls: the
-   padded kernel must give the sliced kernel's values (``torch.equal``),
+   among them), the CSR assembly's segment sum and the SSOR sweep (one
+   launch an application, no host SSOR) launched and the tile kernel not;
+   it prints the stage seconds, the SSOR applications, the coarse CG
+   iterations per V-cycle and the peak device memory.  Then every level's
+   card SSOR against the scipy sweep on one defect (rel 1e-13, the same
+   bits on repeat), both timed beside cuSPARSE's triangular solves, with
+   the sweep's bounds (bytes, and the depth of its rows' dependency
+   chains).  Then the ELL layouts on the
+   last cycle's float64 system (K = 51): the host build of the sliced
+   layout beside the padded reference's, and the sliced kernel timed
+   beside the padded kernel on the same operator and beside ``torch.mv``
+   on a float64 CSR copy (cuSPARSE), each timed as CUDA graphs of
+   back-to-back calls: the padded kernel must give the sliced kernel's
+   values (``torch.equal``),
    and the sliced kernel must take at most 1.10x cuSPARSE's time, be at
    least 1.5x faster than the padded one and reach 60% of its bound.
    Every level's A, P and R = P^T are timed both ways too.  On no
@@ -228,7 +233,7 @@ STEP16_F32 = dict(cells=[4096, 5307, 7526, 10032, 17312],
                   cg=[6, 15, 15, 17, 17], slack=1)
 STEP16_JACOBI = dict(cells=[4096, 5307, 7526], cg=[13, 19, 28], slack=4)
 KERNELS = ("ell_spmv", "tile_density", "dense_density", "exact_gradient",
-           "segment_sum")
+           "segment_sum", "ssor_sweep")
 
 
 def phase_device():
@@ -267,9 +272,10 @@ def counters():
     from coulomb_gmg_tpu_torch.ops.gradient import exact_gradient
     from coulomb_gmg_tpu_torch.ops.tile_density import tile_density
     from coulomb_gmg_tpu_torch.fem.card_assembly import segment_sum
+    from coulomb_gmg_tpu_torch.ops.smoothers import ssor_sweep
     return {"ell_spmv": ell_mv, "tile_density": tile_density,
             "dense_density": dense_density, "exact_gradient": exact_gradient,
-            "segment_sum": segment_sum}
+            "segment_sum": segment_sum, "ssor_sweep": ssor_sweep}
 
 
 def reset_counts():
@@ -941,7 +947,7 @@ def phase_host_f64():
     from coulomb_gmg_tpu_torch.utils.logging import Pcout
     from coulomb_gmg_tpu_torch.driver import Simulation
     from coulomb_gmg_tpu_torch.ops import ell
-    from coulomb_gmg_tpu_torch.ops.smoothers import HostSSOR
+    from coulomb_gmg_tpu_torch.ops.smoothers import CardSSOR
     from coulomb_gmg_tpu_torch.utils.timer import RUNS
 
     cfg = production_scaling_config(ATOMS_N, dtype="float64",
@@ -964,20 +970,22 @@ def phase_host_f64():
               f"iterations {cc}; s: "
               f"{stage_text(r)}", flush=True)
     ssor = {id(e[3].precond): e[3].precond for e in sim._gmg_cache.values()
-            if e[3] is not None and isinstance(e[3].precond, HostSSOR)}
+            if e[3] is not None and isinstance(e[3].precond, CardSSOR)}
     spans, solve_counts = RUNS[-1]["spans"], RUNS[-1]["counters"]["Solve"]
-    calls = spans["smoother.ssor_host"]["calls"]
-    solve_s = spans["smoother.ssor_host"]["total_s"]
+    calls = solve_counts.get("ssor_card_calls", 0)
+    host_s = spans.get("smoother.ssor", {}).get("total_s", 0.0)
     coarse_s = spans["solve.coarse"]["total_s"]
     reads_s = solve_counts.get("host_read_ns", 0) / 1e9
     peak = torch.cuda.max_memory_allocated() / 2**30
+    ssor_row = ssor_levels(ssor.values(), "host f64")
     sys_ell = host_f64_system(sim)
     ell_csr_levels(sim.gmg, "host f64")
     cg = [r["cg_iterations"] for r in res]
     print(f"[host f64] wall {wall:.2f} s; CG {cg} (earlier "
           f"{EARLIER_HOST_F64_CG}); launches {launches} "
-          f"(ELL float64 {f64}); SSOR {calls} applications on "
-          f"{len(ssor)} levels: host solves {solve_s:.2f} s; coarse CG "
+          f"(ELL float64 {f64}); SSOR on the card: {calls} applications "
+          f"on {len(ssor)} levels (each level's card time an application "
+          f"above), {host_s:.3f} s of host launch time; coarse CG "
           f"{coarse_s:.2f} s; Solve's host reads "
           f"{solve_counts.get('host_reads', 0)} ({reads_s:.2f} s, waits "
           f"included); peak device memory {peak:.2f} GiB over the run, "
@@ -997,9 +1005,13 @@ def phase_host_f64():
         raise AssertionError("host f64: non-finite solution")
     if not (launches["ell_spmv"] > 0 and f64 > 0
             and launches["tile_density"] == 0
-            and launches["segment_sum"] > 0):
+            and launches["segment_sum"] > 0
+            and launches["ssor_sweep"] == calls > 0
+            and "smoother.ssor_host" not in spans):
         raise AssertionError(f"host f64: launch counts {launches}, float64 "
-                             f"ELL {f64}")
+                             f"ELL {f64}, card SSOR applications {calls}, "
+                             f"host SSOR spans "
+                             f"{spans.get('smoother.ssor_host')}")
     if not (sys_ell["sliced"] <= 1.10 * sys_ell["torch.mv"]
             and sys_ell["padded"] >= 1.5 * sys_ell["sliced"]
             and sys_ell["bound_ms"] >= 0.60 * sys_ell["sliced"]):
@@ -1010,7 +1022,83 @@ def phase_host_f64():
                              f"{sys_ell['bound_ms']:.4f}: not within 1.10x "
                              f"of torch.mv, 1.5x faster than padded and at "
                              f"60% of the bound")
-    return launches
+    return launches, ssor_row
+
+
+def ssor_levels(ssors, tag):
+    """Each card SSOR of ``ssors`` (one per smoothed level) against the
+    scipy sweep on the same defect (max |d| <= 1e-13 max |y|, the same
+    bits on repeat), both timed (the scipy sweep with its copies, as the
+    solve paid it) beside the library's sweep (:func:`ssor_cusparse`), with
+    the kernel's two bounds: bytes at the card's rate and the depth of its
+    rows' dependency chains.  Returns the largest level's row."""
+    import torch
+    from coulomb_gmg_tpu_torch import roofline
+    from coulomb_gmg_tpu_torch.ops.smoothers import HostSSOR
+    rng = np.random.default_rng(6)
+    rows = []
+    for s in sorted(ssors, key=lambda s: s.A.n_rows):
+        A = s.A
+        r = torch.from_numpy(rng.standard_normal(A.n_rows)).to(
+            A.data.device)
+        host = HostSSOR(A, s.omega)
+        y, yh = s(r), host(r)
+        err = float((y - yh).abs().max())
+        rel = err / float(yh.abs().max())
+        if not (rel <= 1e-13 and all(torch.equal(s(r), y)
+                                     for _ in range(4))):
+            raise AssertionError(f"ssor_sweep {tag}: {A.n_rows} rows, rel "
+                                 f"err {rel:.2e} or bits differ on repeat")
+        ms = median_ms(lambda: s(r))
+        plain_ms = median_ms(lambda: host(r), PLAIN_REPS)
+        lib = ssor_cusparse(s)
+        yl = lib(r)
+        lib_rel = float((yl - yh).abs().max()) / float(yh.abs().max())
+        lib_bits = all(torch.equal(lib(r), yl) for _ in range(4))
+        lib_ms = median_ms(lambda: lib(r))
+        b = roofline.ssor_sweep(s.indptr, s.indices, A.data, r)
+        steps = sum(b["depths"])
+        print(f"[ssor {tag}] {A.n_rows} rows, {A.nnz} nonzeros, chain "
+              f"depths {b['depths'][0]}/{b['depths'][1]}: kernel {ms:.4f} "
+              f"ms ({1e3 * ms / steps:.2f} us a step), scipy with its "
+              f"copies {plain_ms:.3f} ms, cuSPARSE {lib_ms:.4f} ms (rel err "
+              f"{lib_rel:.2e}, same bits on repeat {lib_bits}); max abs err "
+              f"{err:.2e}, rel {rel:.2e}; {bound_text(b, ms)}", flush=True)
+        rows.append(dict(max_abs_err=err, max_rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                         bound_by=b["bound_by"], library_ms=lib_ms))
+    return rows[-1]
+
+
+def ssor_cusparse(s):
+    """The card SSOR ``s``'s application by the library: two sparse
+    triangular solves (``torch.triangular_solve`` on CSR matrices, cuSPARSE
+    with its analysis each call) of ``D/omega + L`` and ``D/omega + U``
+    and the residual's product (``torch.mv``), built once on the card."""
+    import warnings
+    import torch
+    n, dev = s.A.n_rows, s.A.data.device
+    crow, cols = s.indptr.long(), s.indices.long()
+    rows = torch.repeat_interleave(torch.arange(n, device=dev),
+                                   crow[1:] - crow[:-1])
+    vals = torch.where(cols == rows, s.A.data / s.omega, s.A.data)
+
+    def csr(keep, v):
+        cr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        cr[1:] = torch.bincount(rows[keep], minlength=n).cumsum(0)
+        return torch.sparse_csr_tensor(cr, s.indices[keep], v[keep], (n, n))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # "CSR support is in beta"
+        lower, upper = csr(cols <= rows, vals), csr(cols >= rows, vals)
+        A = csr(cols >= 0, s.A.data)
+
+    def apply(r):
+        y1 = torch.triangular_solve(r[:, None], lower,
+                                    upper=False).solution[:, 0]
+        return y1 + torch.triangular_solve((r - torch.mv(A, y1))[:, None],
+                                           upper, upper=True).solution[:, 0]
+    return apply
 
 
 def host_f64_system(sim):
@@ -2082,7 +2170,7 @@ def main():
     main4, traj8k = timed("main path", phase_main_path)
     timed("topology", lambda: phase_topology(traj8k))
     main5 = timed("bruteforce fe", phase_bruteforce_fe)
-    main6 = timed("host f64", phase_host_f64)
+    main6, timing["ssor_sweep"] = timed("host f64", phase_host_f64)
     main7 = timed("routes", phase_routes)
     main8 = timed("device f64", phase_device_f64)
     main9, spmd_sim = timed("multi device", phase_multi_device)
@@ -2104,7 +2192,9 @@ def main():
                 "dense_density": "coulomb_gmg_tpu/ops/pallas_density.py:32",
                 "exact_gradient": "coulomb_gmg_tpu/ops/pallas_gradient.py:45",
                 "segment_sum": "no kernel: coulomb_gmg_tpu/fem/assembly.py:"
-                               "253 (assemble_np, host numpy)"}
+                               "253 (assemble_np, host numpy)",
+                "ssor_sweep": "no kernel: coulomb_gmg_tpu/ops/smoothers.py:"
+                              "make_ssor_host (host scipy)"}
     # launches: the sum over the main-path runs (phases 4 to 14)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
@@ -2115,7 +2205,7 @@ def main():
                                            main12, main13, main14)),
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
-                     "exact_gradient", "segment_sum")]}
+                     "exact_gradient", "segment_sum", "ssor_sweep")]}
     print(f"[smoke] total {time.time() - t0:.1f} s; phases {seconds}",
           flush=True)
     print(smi)

@@ -82,8 +82,7 @@ def gmg_from_jax(leaves: dict, device, smoother: str = "ssor",
     operators.  Smoothers are rebuilt from the level matrices as
     ``build_gmg`` builds them (``colors``: per level, for "mc_ssor")."""
     from coulomb_gmg_tpu_torch.ops.smoothers import (
-        MGSmoother, make_chebyshev, make_jacobi, make_mc_ssor,
-        make_ssor_host)
+        MGSmoother, make_chebyshev, make_jacobi, make_mc_ssor, make_ssor)
     from coulomb_gmg_tpu_torch.ops.spmv import CSR
     from coulomb_gmg_tpu_torch.solver.multigrid import GMGPreconditioner
 
@@ -101,7 +100,7 @@ def gmg_from_jax(leaves: dict, device, smoother: str = "ssor",
             smoothers.append(None)
             continue
         if smoother == "ssor":
-            pre = make_ssor_host(A, smoother_damping)
+            pre = make_ssor(A, smoother_damping)
         elif smoother == "mc_ssor":
             pre = make_mc_ssor(A, colors[l], smoother_damping)
         elif smoother == "chebyshev":

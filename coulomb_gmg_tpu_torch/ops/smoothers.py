@@ -4,11 +4,15 @@ Counterpart of coulomb_gmg_tpu/ops/smoothers.py.  The reference smooths
 with Trilinos ``PreconditionSSOR`` (damping 0.5, two steps,
 src/step-50.cc:969-973), an inherently sequential sweep:
 
-* ``ssor`` (:class:`HostSSOR`): exact sequential SSOR by sparse triangular
-  solves in host scipy, float64, as the JAX package defines it: the
-  reference's smoother and that of every golden.  Each application copies
-  the defect to the host and the result back (the run's ``host_reads`` and
-  ``uploads``) and solves in a span ``smoother.ssor_host``;
+* ``ssor``: exact sequential SSOR (:func:`make_ssor`), the reference's
+  smoother and that of every golden.  On the CPU :class:`HostSSOR`, sparse
+  triangular solves in host scipy, float64, as the JAX package defines
+  it: each application copies the defect to the host and the result back
+  (the run's ``host_reads`` and ``uploads``) and solves in a span
+  ``smoother.ssor_host``.  On a card :class:`CardSSOR`, the same sweep in
+  the hand kernel ``csrc/ssor_sweep.cu`` (host scipy is its plain
+  version), a span ``smoother.ssor`` and a count ``ssor_card_calls`` each
+  application;
 * ``mc_ssor``: multicolour (2^dim colours) symmetric Gauss-Seidel, each
   colour's rows a sliced ELL block through the ELL kernel, written back by
   an indexed write over that colour's rows (unique, so no scatter over
@@ -23,15 +27,17 @@ tensors; :class:`MGSmoother` wraps them with the deal.II
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from coulomb_gmg_tpu_torch import kernels
 from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.solver.cg import host_array
-from coulomb_gmg_tpu_torch.utils.timer import span
+from coulomb_gmg_tpu_torch.utils.timer import count, span
 from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
 
 
@@ -77,8 +83,100 @@ class HostSSOR:
         return upload(y, r.device, r.dtype)
 
 
-def make_ssor_host(A, omega: float = 0.5) -> HostSSOR:
-    return HostSSOR(A, omega)
+_SSOR_FN = {torch.float32: "ssor_sweep_f32", torch.float64: "ssor_sweep_f64"}
+_SSOR_SIGS = {f: [ctypes.c_void_p] * 5 + [ctypes.c_double]
+              + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+              for f in _SSOR_FN.values()}
+# the bits of "not published yet" in the sweep's polled vectors (a NaN no
+# arithmetic returns; csrc/ssor_sweep.cu:kNotYet)
+NOT_YET = int(np.array([0x7FF4DEAD5EED0001], np.uint64).view(np.int64)[0])
+
+
+class CardSSOR:
+    """:class:`HostSSOR`'s sweep on the card that holds ``A``: the kernel
+    ``csrc/ssor_sweep.cu`` reads the level matrix's values where they lie,
+    its pattern uploaded once in int32 and its diagonal, and keeps three
+    float64 vectors of its own (``yp`` and ``z``, polled by the kernel's
+    warps and holding :data:`NOT_YET` between applications, and ``y1``)
+    and two tickets.  Each application is a span ``smoother.ssor`` of the
+    run and adds 1 to its counter ``ssor_card_calls``; the defect never
+    leaves the card.  Built on the CPU it holds the same
+    operands, and an application raises."""
+
+    def __init__(self, A, omega: float = 0.5):
+        if A.n_rows != A.n_cols or A.nnz >= 2 ** 31:
+            raise ValueError(f"CardSSOR: a square matrix of fewer than 2^31 "
+                             f"nonzeros, not {A.n_rows} x {A.n_cols} with "
+                             f"{A.nnz}")
+        # a warp would wait forever on a column that is no row
+        if A.nnz and not 0 <= A.indices.min() <= A.indices.max() < A.n_rows:
+            raise ValueError("CardSSOR: column indices outside the rows")
+        dev = A.data.device
+        self.A, self.omega = A, float(omega)
+        self.indptr = upload(A.indptr.astype(np.int32), dev)
+        self.indices = upload(A.indices.astype(np.int32), dev)
+        self.diag = A.diagonal()
+        not_yet = lambda: torch.full((A.n_rows,), NOT_YET, dtype=torch.int64,
+                                     device=dev).view(torch.float64)
+        self.yp, self.z = not_yet(), not_yet()
+        self.y1 = torch.empty(A.n_rows, dtype=torch.float64, device=dev)
+        self.tickets = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        with span("smoother.ssor"):
+            y = ssor_sweep(self.indptr, self.indices, self.A.data, self.diag,
+                           r, self.omega, self.yp, self.y1, self.z,
+                           self.tickets)
+            count("ssor_card_calls")
+        return y
+
+
+def ssor_sweep(indptr, indices, vals, diag, r, omega, yp, y1, z,
+               tickets) -> torch.Tensor:
+    """One SSOR application ``y`` (dtype of ``r``) in the kernel, on the
+    current stream: ``indptr``/``indices`` the int32 pattern, ``vals`` and
+    ``diag`` the matrix's values and diagonal in ``r``'s dtype; ``yp``,
+    ``y1``, ``z`` float64 and ``tickets`` int32, state kept between
+    applications (``yp``, ``z`` :data:`NOT_YET` and ``tickets`` zeros
+    before the first).  Raises on operands the kernel does not take, and on
+    any that are not on one card."""
+    n = len(diag)
+    if r.dtype not in _SSOR_FN or {vals.dtype, diag.dtype} != {r.dtype}:
+        raise TypeError(f"ssor_sweep: values, diagonal and defect in one "
+                        f"of float32/float64, got {vals.dtype}/{diag.dtype}/"
+                        f"{r.dtype}")
+    if (indptr.dtype, indices.dtype, tickets.dtype) != (torch.int32,) * 3 \
+            or {yp.dtype, y1.dtype, z.dtype} != {torch.float64}:
+        raise TypeError("ssor_sweep: int32 pattern and tickets, float64 "
+                        "yp, y1 and z")
+    ops = (indptr, indices, vals, diag, r, yp, y1, z, tickets)
+    if (any(t.dim() != 1 for t in ops) or len(indptr) != n + 1
+            or len(indices) != len(vals) or len(tickets) != 2
+            or any(len(t) != n for t in (r, yp, y1, z))):
+        raise ValueError(f"ssor_sweep: shapes {[tuple(t.shape) for t in ops]}"
+                         f" for {n} rows")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("ssor_sweep: operands must be contiguous")
+    if not all(t.is_cuda and t.device == r.device for t in ops):
+        raise ValueError("ssor_sweep: every operand must be on one CUDA card")
+    y = torch.empty_like(r)
+    lib = kernels.library("ssor_sweep", _SSOR_SIGS)
+    kernels.launch(getattr(lib, _SSOR_FN[r.dtype]), r.device, "ssor_sweep",
+                   indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
+                   diag.data_ptr(), r.data_ptr(), float(omega),
+                   yp.data_ptr(), y1.data_ptr(), z.data_ptr(), y.data_ptr(),
+                   tickets.data_ptr(), n)
+    ssor_sweep.launches += 1
+    return y
+
+
+ssor_sweep.launches = 0   # applications (each the forward and backward kernel)
+
+
+def make_ssor(A, omega: float = 0.5):
+    """Exact SSOR where ``A`` lies: :class:`CardSSOR` on a card,
+    :class:`HostSSOR` on the CPU."""
+    return CardSSOR(A, omega) if A.data.is_cuda else HostSSOR(A, omega)
 
 
 def make_mc_ssor(A, color: np.ndarray, omega: float = 0.5):

@@ -9,9 +9,11 @@ written once.  Work counts only what the given inputs need to change the
 output: the member (point, atom) terms of the locality cut, the (point,
 atom) pairs of the brute-force density whose float32 ``exp`` is not zero,
 the nonzero slots of the ELL operator, every (point, atom) pair of the
-exact gradient, near ones at the full formula's cost, and every entry of
-the CSR assembly's segment sum (a float64 addition counts 2 operations:
-the card's float64 rate is half its float32 rate).
+exact gradient, near ones at the full formula's cost, every entry of
+the CSR assembly's segment sum and every product of the SSOR sweep (a
+float64 addition or FMA counts 2 operations per flop: the card's float64
+rate is half its float32 rate).  The SSOR sweep is bound by neither: its
+rows wait on each other, and :func:`chain_depths` counts the steps.
 """
 
 from __future__ import annotations
@@ -104,3 +106,37 @@ def segment_sum(seg: torch.Tensor, src: torch.Tensor,
     entries = src.numel()
     return {**bound(2 * entries, nbytes(seg, src, out) + 8 * entries),
             "terms": entries}
+
+
+def chain_depths(indptr, indices) -> tuple:
+    """(forward, backward): the longest chains of the SSOR sweeps' row
+    dependencies, row i waiting on the rows j < i (forward) or j > i
+    (backward) of its pattern: the steps no schedule can overlap."""
+    import numpy as np
+    indptr, indices = np.asarray(indptr), np.asarray(indices)
+    n = len(indptr) - 1
+    depths = []
+    for rows in (range(n), range(n - 1, -1, -1)):
+        d = np.zeros(n, np.int64)
+        forward = rows.step == 1
+        for i in rows:
+            j = indices[indptr[i]:indptr[i + 1]]
+            j = j[j < i] if forward else j[j > i]
+            d[i] = 1 + (int(d[j].max()) if len(j) else 0)
+        depths.append(int(d.max()) if n else 0)
+    return tuple(depths)
+
+
+def ssor_sweep(indptr: torch.Tensor, indices: torch.Tensor,
+               vals: torch.Tensor, r: torch.Tensor) -> dict:
+    """One application (ops/smoothers.py:ssor_sweep): an FMA per nonzero
+    of the lower triangle (forward), of the whole row and of the upper
+    triangle (backward), each float64 (2 operations); the pattern, values,
+    diagonal and defect read, the result written.  ``depths``: the chain
+    lengths of :func:`chain_depths`, which bound it on the card instead."""
+    nnz = indices.numel()
+    n = r.numel()
+    return {**bound(2 * 2 * 2 * nnz, nbytes(indptr, indices, vals, r, r)
+                    + n * vals.element_size()),
+            "depths": chain_depths(indptr.cpu().numpy(),
+                                   indices.cpu().numpy())}

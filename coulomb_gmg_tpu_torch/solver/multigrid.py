@@ -44,7 +44,7 @@ from coulomb_gmg_tpu_torch.fem import card_assembly as card
 from coulomb_gmg_tpu_torch.ops.q1 import lagrange_nodes_1d, _lagrange_eval
 from coulomb_gmg_tpu_torch.ops.spmv import CSR
 from coulomb_gmg_tpu_torch.ops.smoothers import (
-    MGSmoother, make_jacobi, make_mc_ssor, make_ssor_host, make_chebyshev,
+    MGSmoother, make_jacobi, make_mc_ssor, make_ssor, make_chebyshev,
     lattice_color)
 from coulomb_gmg_tpu_torch.solver.cg import cg, host_float
 
@@ -270,7 +270,7 @@ def build_gmg(forest: Forest, dofs: DofInfo, tables,
             smth = None
             if l > 0 and smoother != "none":
                 if smoother == "ssor":
-                    pre = make_ssor_host(A, smoother_damping)
+                    pre = make_ssor(A, smoother_damping)
                 elif smoother == "mc_ssor":
                     pre = make_mc_ssor(A, lattice_color(forest, ld),
                                        smoother_damping)

@@ -446,6 +446,83 @@ def test_host_assembled_step16_on_card(card, precision):
     assert all(abs(a - b) <= 1 for a, b in zip(out[0][1], out[1][1]))
 
 
+@pytest.fixture(scope="module", params=[2, 5], ids=["64", "1000"])
+def card_ssors(request):
+    """The SSOR smoothers of the float64 host-assembled run of 8 n^3 atoms
+    on the card (5 cycles), one per smoothed level of every hierarchy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = production_scaling_config(request.param, dtype="float64",
+                                    device_operators="off")
+    sim = Simulation(cfg, atoms=nacl_lattice(request.param), device="cuda",
+                     pcout=Pcout(enabled=False))
+    sim.run()
+    return [e[3].precond for e in sim._gmg_cache.values()
+            if e[3] is not None]
+
+
+def test_card_ssor_is_the_host_ssor(card_ssors):
+    """Each level's card sweep against the scipy sweep on the same matrix
+    and defect: max |d| <= 1e-13 max |y|, the same bits on every repeat,
+    one ``ssor_card_calls``, one span and one launch an application."""
+    from coulomb_gmg_tpu_torch import kernels
+    from coulomb_gmg_tpu_torch.ops.smoothers import CardSSOR, HostSSOR, \
+        ssor_sweep
+    from coulomb_gmg_tpu_torch.utils.timer import TimerOutput
+    assert card_ssors and all(isinstance(s, CardSSOR) for s in card_ssors)
+    rng = np.random.default_rng(11)
+    for s in card_ssors:
+        dev = s.A.data.device
+        r = torch.from_numpy(rng.standard_normal(s.A.n_rows)).to(dev)
+        key = ("ssor_sweep", dev.index)
+        before = (kernels.LAUNCHES.get(key, 0), ssor_sweep.launches)
+        with TimerOutput().run() as tr:
+            y = s(r)
+        run = tr.summarize()
+        assert run["counters"]["run"]["ssor_card_calls"] == 1
+        assert run["spans"]["smoother.ssor"]["calls"] == 1
+        assert (kernels.LAUNCHES[key], ssor_sweep.launches) == (
+            before[0] + 1, before[1] + 1)
+        yh = HostSSOR(s.A, 0.5)(r.cpu())
+        assert y.dtype == torch.float64
+        assert float((y.cpu() - yh).abs().max()) <= 1e-13 * float(
+            yh.abs().max())
+        assert all(torch.equal(s(r), y) for _ in range(8))
+
+
+def test_card_ssor_in_float32(card_ssors):
+    """A float32 level matrix and defect: read as float32, summed in
+    float64, rounded once to float32, so within 1 ulp of the scipy sweep's
+    float32 result (plus 1e-13 max |y| where cancellation leaves an
+    element far below the largest)."""
+    from coulomb_gmg_tpu_torch.ops.smoothers import CardSSOR, HostSSOR
+    from coulomb_gmg_tpu_torch.ops.spmv import CSR
+    rng = np.random.default_rng(12)
+    for s in card_ssors:
+        A = s.A
+        A32 = CSR.from_pattern(A.indptr, A.indices, A.data.float())
+        r = torch.from_numpy(rng.standard_normal(A.n_rows)).float().to(
+            A.data.device)
+        y = CardSSOR(A32, 0.5)(r).cpu()
+        yh = HostSSOR(A32, 0.5)(r.cpu())
+        assert y.dtype == yh.dtype == torch.float32
+        ulp = torch.nextafter(yh.abs(), torch.tensor(np.inf)) - yh.abs()
+        assert bool(((y - yh).abs() <= ulp + 1e-13 * float(
+            yh.abs().max())).all())
+
+
+def test_card_ssor_refuses_what_it_does_not_take(card_ssors):
+    s = card_ssors[-1]
+    n, dev = s.A.n_rows, s.A.data.device
+    r = torch.ones(2 * n, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        s(r[::2])
+    with pytest.raises(ValueError, match="shapes"):
+        s(r[:n + 1])
+    with pytest.raises(TypeError, match="float32/float64"):
+        s(r[:n].float())
+
+
 def test_sharded_tile_density_on_card(card):
     """Three shards of the tile kernel on one card: the same bits as one
     launch over the whole plan, one launch per shard."""

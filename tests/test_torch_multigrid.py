@@ -83,7 +83,8 @@ def test_smoothers_match_jax(hier, smoother):
     ld = hier["dofs"].levels[l]
     jld = hier["jf"].dofs_of(1).levels[l]
     make = {"jacobi": lambda m, A, f, ld: m.make_jacobi(A, 0.6),
-            "ssor": lambda m, A, f, ld: m.make_ssor_host(A, 0.5),
+            "ssor": lambda m, A, f, ld: (TSm.HostSSOR(A, 0.5) if m is TSm
+                                         else m.make_ssor_host(A, 0.5)),
             "mc_ssor": lambda m, A, f, ld: m.make_mc_ssor(
                 A, m.lattice_color(f, ld), 0.5),
             "chebyshev": lambda m, A, f, ld: m.make_chebyshev(A)}[smoother]
@@ -108,7 +109,7 @@ def test_host_ssor_counts_its_applications(hier):
     """Each application: one span ``smoother.ssor_host`` of the run, one
     counted host read of the defect and one counted upload back."""
     A = hier["tg"].matrices[-1]
-    s = TSm.make_ssor_host(A, 0.5)
+    s = TSm.HostSSOR(A, 0.5)
     with TimerOutput().run() as tr:
         s(t64(np.ones(A.n_rows)))
         s(t64(np.ones(A.n_rows)))
@@ -117,6 +118,116 @@ def test_host_ssor_counts_its_applications(hier):
     assert ssor["calls"] == 2 and ssor["total_s"] > 0.0
     assert run["counters"]["run"]["host_reads"] == 2
     assert run["counters"]["run"]["uploads"] == 2
+
+
+def test_cpu_levels_keep_the_host_ssor(hier):
+    """On the CPU ``build_gmg(smoother="ssor")`` and ``gmg_from_jax`` build
+    the scipy sweep: a V-cycle opens 4 spans ``smoother.ssor_host`` a
+    smoothed level and none of the card sweep."""
+    tg = hier["tg"]
+    again = gmg_from_jax(gmg_leaves(hier["jg"]), "cpu", smoother="ssor")
+    smoothed = [s for s in tg.smoothers if s is not None]
+    for g in (tg, again):
+        assert all(isinstance(s.precond, TSm.HostSSOR)
+                   for s in g.smoothers if s is not None)
+    assert len(smoothed) == len(tg.matrices) - 1
+    assert isinstance(TSm.make_ssor(tg.matrices[-1]), TSm.HostSSOR)
+    g = np.random.default_rng(4).standard_normal(tg.n_dofs)
+    with TimerOutput().run() as tr:
+        tg(t64(g))
+    run = tr.summarize()
+    assert run["spans"]["smoother.ssor_host"]["calls"] == 4 * len(smoothed)
+    assert "smoother.ssor" not in run["spans"]
+    assert "ssor_card_calls" not in run["counters"]["run"]
+
+
+def test_card_ssor_operands_on_the_cpu(hier):
+    """The card sweep's operands, prepared from a CPU CSR: the int32
+    pattern equal to the CSR's, its diagonal, the polled vectors all
+    ``NOT_YET`` and zeroed tickets; an application off the card raises."""
+    A = hier["tg"].matrices[-1]
+    s = TSm.CardSSOR(A, 0.5)
+    assert s.indptr.dtype == s.indices.dtype == torch.int32
+    np.testing.assert_array_equal(s.indptr.numpy(), A.indptr)
+    np.testing.assert_array_equal(s.indices.numpy(), A.indices)
+    assert torch.equal(s.diag, A.diagonal())
+    assert bool((s.diag > 0).all())
+    assert s.yp.dtype == s.y1.dtype == s.z.dtype == torch.float64
+    assert s.yp.shape == s.y1.shape == s.z.shape == (A.n_rows,)
+    for v in (s.yp, s.z):
+        assert bool((v.view(torch.int64) == TSm.NOT_YET).all())
+        assert bool(v.isnan().all())
+    assert s.tickets.tolist() == [0, 0]
+    before = TSm.ssor_sweep.launches
+    with pytest.raises(ValueError, match="CUDA card"):
+        s(t64(np.ones(A.n_rows)))
+    assert TSm.ssor_sweep.launches == before
+
+
+@pytest.mark.parametrize("fault, error, match", [
+    ("defect_float32", TypeError, "float32/float64"),
+    ("values_int64", TypeError, "float32/float64"),
+    ("pattern_int64", TypeError, "int32 pattern"),
+    ("y1_float32", TypeError, "float64 yp, y1"),
+    ("defect_short", ValueError, "shapes"),
+    ("indices_short", ValueError, "shapes"),
+    ("tickets_three", ValueError, "shapes"),
+    ("defect_strided", ValueError, "contiguous"),
+])
+def test_ssor_sweep_checks_its_operands(hier, fault, error, match):
+    """What the kernel does not take raises before any launch, on the CPU
+    as on the card."""
+    A = hier["tg"].matrices[-1]
+    s = TSm.CardSSOR(A, 0.5)
+    n = A.n_rows
+    ops = dict(indptr=s.indptr, indices=s.indices, vals=A.data,
+               diag=s.diag, r=t64(np.ones(n)), omega=0.5, yp=s.yp, y1=s.y1,
+               z=s.z, tickets=s.tickets)
+    change = {
+        "defect_float32": ("r", lambda t: t.float()),
+        "values_int64": ("vals", lambda t: t.long()),
+        "pattern_int64": ("indptr", lambda t: t.long()),
+        "y1_float32": ("y1", lambda t: t.float()),
+        "defect_short": ("r", lambda t: t[:-1]),
+        "indices_short": ("indices", lambda t: t[:-1]),
+        "tickets_three": ("tickets", lambda t: torch.zeros(3, dtype=t.dtype)),
+        "defect_strided": ("r", lambda t: torch.ones(2 * n,
+                                                     dtype=t.dtype)[::2]),
+    }[fault]
+    ops[change[0]] = change[1](ops[change[0]])
+    with pytest.raises(error, match=match):
+        TSm.ssor_sweep(**ops)
+
+
+def test_ssor_chain_depths(hier):
+    """The SSOR sweep's dependency chains (roofline.chain_depths): a
+    tridiagonal matrix's are its size both ways; a level matrix's pattern
+    is symmetric, so both sweeps are equally deep."""
+    from coulomb_gmg_tpu_torch.roofline import chain_depths
+    n = 7
+    cols = [[j for j in (i - 1, i, i + 1) if 0 <= j < n] for i in range(n)]
+    indptr = np.cumsum([0] + [len(c) for c in cols])
+    assert chain_depths(indptr, np.concatenate(cols)) == (n, n)
+    assert chain_depths(np.arange(n + 1), np.arange(n)) == (1, 1)
+    A = hier["tg"].matrices[-1]
+    fwd, bwd = chain_depths(A.indptr, A.indices)
+    assert fwd == bwd > 1
+
+
+def test_card_ssor_takes_square_matrices(hier):
+    """A rectangular matrix, or a column that is no row (on which a warp of
+    the kernel would wait forever), raises before anything reaches the
+    card."""
+    from coulomb_gmg_tpu_torch.ops.spmv import CSR
+    P = hier["tg"].prolongations[-1]
+    with pytest.raises(ValueError, match="square"):
+        TSm.CardSSOR(P, 0.5)
+    A = hier["tg"].matrices[-1]
+    for bad in (-1, A.n_rows):
+        cols = A.indices.copy()
+        cols[len(cols) // 2] = bad
+        with pytest.raises(ValueError, match="outside the rows"):
+            TSm.CardSSOR(CSR.from_pattern(A.indptr, cols, A.data), 0.5)
 
 
 @pytest.mark.parametrize("source", ["build_gmg", "gmg_from_jax"])
