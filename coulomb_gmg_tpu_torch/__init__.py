@@ -12,9 +12,9 @@ the host: the CSR assembly's ordered segment sum and the SSOR smoother's
 sweep.  Mesh, DoF and constraint
 topology is host numpy in the package's own modules (``mesh/``, ``fem/``,
 ``adapt/transfer.py``, ``ops/q1.py``, ``ops/neighbors.py``, ``utils/``),
-copies of the JAX package's framework-neutral ones, and the native
-topology engine (``csrc/forest_engine.cpp``) builds into ``build/native/``
-at first use.  Nothing here imports jax or ``coulomb_gmg_tpu``.
+copies of the JAX package's framework-neutral ones, and the native host
+engine (``csrc/forest_engine.cpp``: the atom lists and the CSR to sliced
+ELL conversion) builds into ``build/native/`` at first use.  Nothing here imports jax or ``coulomb_gmg_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -2,12 +2,12 @@
 // (coulomb_gmg_tpu_torch/fem/card_assembly.py:segment_sum).
 //
 // Replaces no TPU kernel.  The JAX package sums the assembly's entries into
-// their CSR slots on the host (fem/assembly.py:assemble_np, np.bincount);
+// their CSR slots on the host (coulomb_gmg_tpu/fem/assembly.py, np.bincount);
 // the port's float64 route does it on the card, where the entries already
 // are, and a scatter-add there (index_add_) would use float64 atomics,
 // whose order of additions, and so whose last bits, change from run to run.
 // Here the entries come sorted by slot (a stable sort, so each slot's run
-// keeps the enumeration order of the host plan), and one thread sums one
+// keeps the plan's enumeration order), and one thread sums one
 // slot's run in order, from 0.0:
 //
 //     out[s] = v(src[seg[s]]) + ... + v(src[seg[s + 1] - 1])
@@ -23,8 +23,8 @@
 // expansion arrays (entries of the dirty cells only), so the plan keeps one
 // int32 code per entry and no weight.  Every product and sum is rounded on
 // its own (__dmul_rn, __dadd_rn: no fused multiply-add), so the result has
-// the bits of a sequential np.bincount of the host engine's values
-// (fem/assembly.py: k64[c, i, j] * (w_a * w_b)), and of the plain version.
+// the bits of a sequential np.bincount of the values k[c, i, j] * (w_a *
+// w_b), and of the plain version.
 //
 // What bounds it on the H100: memory.  A slot reads its run's int32 codes
 // (contiguous, so a warp's 32 runs share cache lines) and gathers 8 or 16

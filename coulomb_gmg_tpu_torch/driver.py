@@ -19,21 +19,21 @@ the JAX driver chooses them (its ``device_ops_active``, ``use_tpu_cg`` and
 * **host-assembled** (everything else on one device): the CSR system and
   the level and interface matrices assembled on the device
   (fem/card_assembly.py, solver/multigrid.py), their patterns and values
-  read back where host code needs them (the host SSOR, the ELL layout),
-  applied on the device through the ELL kernel (ops/spmv.py), solved by
+  read back where host code needs them (the ELL layout), applied on the
+  device through the ELL kernel (ops/spmv.py), solved by
   ``TpuGMG`` with ``solve_refined`` or
   ``tpu_cg_solve`` (``use_tpu_cg``: ``solver_backend="tpu_cg"``, or
   ``"auto"`` in float32), else the host-loop ``cg`` with
   ``GMGPreconditioner`` (the reference's SSOR smoother by default) or
   the CG with Jacobi (solver/fused.py:stepped_cg under ``solve_fused``);
-* **SPMD** (``n_devices > 1``, parallel/): the system's plan built on the
-  host (fem/assembly.py) with the density, assembly, Kelly estimate, FE
-  error and energy sharded over
+* **SPMD** (``n_devices > 1``, parallel/): the system's plan built on
+  ``Simulation.device`` (fem/card_assembly.py) and read back once, with
+  the density, assembly, Kelly estimate, FE error and energy sharded over
   contiguous SFC cell blocks (parallel/spmd.py), solved by ``ShardedGMG``
   or the sharded Jacobi-CG (parallel/sharded_gmg.py, parallel/sharded.py).
   ``Simulation(spmd_devices=...)`` names each shard's device.
 
-``solve_fused`` (the default) runs every solve but the host SSOR route's
+``solve_fused`` (the default) runs every solve but the SSOR route's
 as a stepped solve (solver/fused.py): on the card CUDA graphs, the sharded
 ones too across several cards of one process (one graph over all of them)
 or NCCL ranks, and uncaptured on CPU shards, cards without peer access or
@@ -44,7 +44,7 @@ Float32 densities come from the tile kernel (``density_tiles``) or the
 dense kernel (no locality flag), float64 ones and ``density_tiles=False``
 from the mask and list branches of ops/density.py:compute_density.  The
 forest (its refinement and balance) and the constraints, the SPMD assembly
-plan, atom lists and output stay on the host in numpy; the cycle's derived
+tables, atom lists and output stay on the host in numpy; the cycle's derived
 topology is torch code on ``Simulation.device`` (``Forest.device``): the
 DoF numbering with its hanging nodes and level DoFs (mesh/dofs.py), the
 solution transfer (adapt/transfer.py), the level topology and copy maps
@@ -73,7 +73,6 @@ from coulomb_gmg_tpu_torch.adapt.transfer import (
 from coulomb_gmg_tpu_torch.config import Config
 from coulomb_gmg_tpu_torch.device import resolve, upload
 from coulomb_gmg_tpu_torch.fem import card_assembly
-from coulomb_gmg_tpu_torch.fem.assembly import build_plan
 from coulomb_gmg_tpu_torch.fem.constraints import (build_constraints,
                                                    distribute, set_zero)
 from coulomb_gmg_tpu_torch.fem.integrals import rhs_cells
@@ -336,13 +335,11 @@ class Simulation:
             self.constraints = build_constraints(dofs, self.boundary_fn())
             if self.device_ops:
                 self.plan = None
-            elif self.spmd is None:
+            else:
                 # the CSR pattern and each slot's entries, on the device
                 self.plan = card_assembly.plan(
                     dofs.cell2dof, card_assembly.card_constraints(
                         self.constraints, self.device), rhs=True)
-            else:
-                self.plan = build_plan(dofs.host.cell2dof, self.constraints)
 
     # ----------------------------------------------------------- assembly
 
@@ -390,7 +387,7 @@ class Simulation:
                 data, rhs = card_assembly.assemble(self.plan, k, f_cells,
                                                    self.dtype)
                 rhs = to_host(rhs)
-                self.plan.release()
+            self.plan.release()
             self.A = CSR.from_pattern(self.plan.pattern.indptr,
                                       self.plan.pattern.indices, data,
                                       device=self.device)
@@ -552,7 +549,7 @@ class Simulation:
                 device=self.device, dtype=self.dtype, fused=cfg.solve_fused)
             return x.astype(np.float64), k, res0, resf
         put = lambda a: upload(np.asarray(a), self.device, self.dtype)
-        # the host SSOR of the GMG route runs in the host loop, as JAX's
+        # the SSOR GMG route runs in the host loop, as JAX's
         # cg(host=True); Jacobi in the stepped solve, as JAX's host=False
         if cfg.preconditioner == "GMG":
             solve, precond = cg, self.gmg

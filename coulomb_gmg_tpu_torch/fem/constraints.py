@@ -98,7 +98,6 @@ def build_constraints(dofs: DofInfo,
 
     # assemble final CSR over sorted constrained rows
     all_rows = np.union1d(hanging_set, b_rows).astype(np.int64)
-    row_pos = {r: i for i, r in enumerate(all_rows)}
     counts = np.zeros(len(all_rows), dtype=np.int64)
     if len(rows):
         ridx = np.searchsorted(all_rows, rows)

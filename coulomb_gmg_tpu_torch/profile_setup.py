@@ -11,13 +11,12 @@ cold, on that forest: the DoF numbering on the forest's device
 the node positions, ``_find_hanging``, ``_build_level``, ``build_dofs``;
 the card is synchronized around each piece), then on the host the
 constraints (fem/constraints.py, including the one host copy of the DoF
-arrays) and the host assembly plan (fem/assembly.py: ``_expand_entries``,
-``native.pattern``, ``build_plan``), then the plan that the single-device
-run builds in its place on the forest's device (fem/card_assembly.py:
-``plan``, with the load vector's runs).  One line a piece with its wall
-seconds on the host clock, under the JAX tool's labels where the piece is
-the same, and its last line: the pattern's nonzeros and the clean and
-dirty counts.
+arrays), then the assembly plan on the forest's device
+(fem/card_assembly.py: the constraints' upload ``card_constraints``, the
+dirty cells' constraint expansion ``_expand`` and the whole ``plan``, with
+the load vector's runs).  One line a piece with its wall seconds on the
+host clock, under the JAX tool's labels where the piece is the same, and
+its last line: the pattern's nonzeros and the clean and dirty counts.
 """
 
 from __future__ import annotations
@@ -25,21 +24,17 @@ from __future__ import annotations
 import argparse
 import time
 
-import numpy as np
-
 
 def profile(f, degree: int, boundary_fn) -> dict:
     """Time the pieces on forest ``f``; returns ``{"seconds": {label: s},
     "nnz", "clean", "n_cells", "dirty_m"}``."""
     import torch
     from coulomb_gmg_tpu_torch.fem import card_assembly
-    from coulomb_gmg_tpu_torch.fem.assembly import _expand_entries, build_plan
     from coulomb_gmg_tpu_torch.fem.constraints import build_constraints
     from coulomb_gmg_tpu_torch.mesh.dofs import (_build_level,
                                                  _cell_node_keys,
                                                  _find_hanging, _index,
                                                  _numbering, build_dofs)
-    from coulomb_gmg_tpu_torch.utils import native
 
     seconds = {}
     sync = ((lambda: torch.cuda.synchronize(f.device))
@@ -69,30 +64,22 @@ def profile(f, degree: int, boundary_fn) -> dict:
 
     cons = t("build_constraints", lambda: build_constraints(dofs,
                                                             boundary_fn))
-    c2d = dofs.cell2dof
-    dofs = dofs.host
-    crow = t("  row_of(cell2dof)", lambda: cons.row_of(
-        dofs.cell2dof.reshape(-1)).reshape(dofs.cell2dof.shape))
-    clean = ~(crow >= 0).any(axis=1)
-    clean_idx = np.where(clean)[0]
-    dirty_idx = np.where(~clean)[0]
-    exp = t("  _expand_entries (dirty)", lambda: _expand_entries(
-        dofs.cell2dof[dirty_idx], crow[dirty_idx], cons))
-    m_row, m_col, d_dof = exp[4], exp[5], exp[8]
-    n_basis = dofs.cell2dof.shape[1]
-    t("  native.pattern", lambda: native.pattern(
-        dofs.cell2dof[clean_idx].reshape(len(clean_idx), n_basis),
-        np.concatenate([m_row, d_dof]), np.concatenate([m_col, d_dof]),
-        cons.n_dofs))
-    plan = t("build_plan TOTAL", lambda: build_plan(dofs.cell2dof, cons))
-    t("card_assembly.plan TOTAL (forest's device)", lambda: card_assembly.plan(
+    c2d = dofs.cell2dof.to(torch.int64)
+    ccon = t("  card_constraints", lambda: card_assembly.card_constraints(
+        cons, f.device))
+    crow = ccon.crow[c2d]
+    dirty_idx = torch.nonzero((crow >= 0).any(1)).squeeze(1)
+    ex = t("  _expand (dirty)", lambda: card_assembly._expand(
+        c2d[dirty_idx], crow[dirty_idx], dirty_idx, ccon))
+    plan = t("card_assembly.plan TOTAL", lambda: card_assembly.plan(
         c2d, card_assembly.card_constraints(cons, f.device), rhs=True))
-    print(f"pattern nnz: {plan.pattern.nnz}, "
-          f"clean {len(plan.clean_idx)}/{plan.n_cells} cells, "
-          f"dirty m-entries {len(plan.md_cell)}", flush=True)
+    n_cells = plan.n_cells
+    clean = n_cells - len(dirty_idx)
+    dirty_m = int((torch.diff(ex.cell_off.to(torch.int64)) ** 2).sum())
+    print(f"pattern nnz: {plan.pattern.nnz}, clean {clean}/{n_cells} "
+          f"cells, dirty m-entries {dirty_m}", flush=True)
     return {"seconds": seconds, "nnz": int(plan.pattern.nnz),
-            "clean": len(plan.clean_idx), "n_cells": int(plan.n_cells),
-            "dirty_m": len(plan.md_cell)}
+            "clean": clean, "n_cells": n_cells, "dirty_m": dirty_m}
 
 
 def main(argv=None) -> dict:

@@ -50,8 +50,7 @@ TARGETS = {
     "ops.stencil": ["level_topology", "topology_signature"],
     "solver.device_gmg": ["copy_maps"],
     "fem.constraints": ["build_constraints"],
-    "fem.assembly": ["build_plan"],
-    "utils.native": ["sort_unique_inverse", "lookup"],
+    "fem.card_assembly": ["plan"],
 }
 
 

@@ -18,8 +18,8 @@ production).
 Everything is float64: the densities through
 ops/density.py:compute_density on ``--device`` (the card unless
 ``--device cpu``; no card raises), never the float32 kernels, since the
-study measures float64 differences down to 0; the assembly on the host
-(fem/assembly.py: ``build_plan``, ``assemble_np``).
+study measures float64 differences down to 0; the assembly on the same
+device (fem/card_assembly.py: ``plan``, ``assemble``).
 """
 
 from __future__ import annotations
@@ -38,9 +38,9 @@ class Study:
     cells of [-2, 3]^3, the pair of ``two_atom_pair``."""
 
     def __init__(self, reps: int, device):
-        from coulomb_gmg_tpu_torch.fem.assembly import build_plan
+        from coulomb_gmg_tpu_torch.device import upload
+        from coulomb_gmg_tpu_torch.fem import card_assembly
         from coulomb_gmg_tpu_torch.fem.constraints import build_constraints
-        from coulomb_gmg_tpu_torch.fem.integrals import stiffness_cells_np
         from coulomb_gmg_tpu_torch.mesh.forest import Forest
         from coulomb_gmg_tpu_torch.models.atoms import two_atom_pair
         from coulomb_gmg_tpu_torch.ops.q1 import element_tables
@@ -48,18 +48,21 @@ class Study:
         self.atoms = two_atom_pair()
         self.forest = f = Forest.uniform(3, reps, np.full(3, -2.0),
                                          5.0 / reps)
-        self.plan = build_plan(f.dofs.host.cell2dof, build_constraints(f.dofs,
-                                                                  None))
+        self.plan = card_assembly.plan(
+            f.dofs.cell2dof.to(device), card_assembly.card_constraints(
+                build_constraints(f.dofs, None), device), rhs=True)
         self.tab_rhs = element_tables(3, 1, 5)
         self.h = f.cell_h()
-        self.K = stiffness_cells_np(element_tables(3, 1, 2), self.h)
+        self.K = card_assembly.cell_matrices(element_tables(3, 1, 2),
+                                             upload(self.h, device))
 
     def rhs(self, cutoff: float = None) -> tuple:
         """(rhs, integrated total charge, mask): the RHS from the density
         over the atoms within ``cutoff * r_c`` of each cell's vertices
         (``mask``), or over every atom (``cutoff`` None, ``mask`` None)."""
         import torch
-        from coulomb_gmg_tpu_torch.fem.assembly import assemble_np
+        from coulomb_gmg_tpu_torch.device import upload
+        from coulomb_gmg_tpu_torch.fem.card_assembly import assemble
         from coulomb_gmg_tpu_torch.fem.integrals import rhs_cells_np
         from coulomb_gmg_tpu_torch.ops.density import (atom_masks,
                                                        compute_density)
@@ -70,8 +73,9 @@ class Study:
         rho = compute_density(f, tab.points, at.positions, at.charges, R_C,
                               self.device, mask=mask,
                               dtype=torch.float64).cpu().numpy()
-        _, rhs = assemble_np(self.plan, self.K, rhs_cells_np(tab, self.h,
-                                                              rho))
+        _, rhs = assemble(self.plan, self.K, upload(
+            rhs_cells_np(tab, self.h, rho), self.device))
+        rhs = rhs.cpu().numpy()
         # integrated total charge: sum_cells vol * sum_q w_q rho_q / 4pi
         w = np.asarray(tab.weights)
         return rhs, float((self.h ** 3 * (rho @ w)).sum() / (4.0 * np.pi)), \

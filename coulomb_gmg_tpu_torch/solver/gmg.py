@@ -104,8 +104,8 @@ def cellwise_mv(s: dict, v: torch.Tensor) -> torch.Tensor:
     """Matrix-free matvec of the assembled system: constraint expansion C,
     the raw cell pass (gather by cell2dof, K_ref contraction, gather-sum
     over the transposed table d2c), C^T, and the regularization diagonal on
-    constrained rows — the assembled semantics of
-    fem/assembly.py:assemble_np without the CSR."""
+    constrained rows — the assembled semantics of fem/card_assembly.py
+    without the CSR."""
     wr = ell_mv(s["con_cols_full"], s["con_w_full"], v)
     w = torch.where(s["con_mask"], wr, v)
     ylT = (s["kref"] @ w[s["c2d"]]) * s["hsc"][None, :]     # (nb, C_pad)

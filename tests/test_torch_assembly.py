@@ -1,9 +1,10 @@
-"""Host assembly of the PyTorch port (fem/integrals.py, fem/assembly.py) and
-its CSR (ops/spmv.py, ops/ell.py) against the JAX package on the same
-refined mesh with hanging nodes and inhomogeneous Dirichlet values:
-element integrals and assembled data / rhs rel 1e-12, plans and ELL
-layouts equal, CSR products (through ``ell_mv``'s plain version) rel
-1e-12."""
+"""The element integrals of the PyTorch port (fem/integrals.py) and its CSR
+(ops/spmv.py, ops/ell.py) against the JAX package on the same refined mesh
+with hanging nodes and inhomogeneous Dirichlet values, the system
+assembled by the JAX package's host engine: element integrals rel 1e-12,
+ELL layouts equal, CSR products (through ``ell_mv``'s plain version) rel
+1e-12.  The port's assembly engine is held to the same host engine by
+tests/test_torch_card_assembly.py and tests/test_torch_spmd.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,7 +16,6 @@ from coulomb_gmg_tpu.fem import integrals as JI
 from coulomb_gmg_tpu.models import problems as JP
 from coulomb_gmg_tpu.ops import spmv as JS
 from coulomb_gmg_tpu.ops.ell import ELL as JELL
-from coulomb_gmg_tpu_torch.fem import assembly as TA
 from coulomb_gmg_tpu_torch.fem import integrals as TI
 from coulomb_gmg_tpu_torch.ops.density import cell_quad_points
 from coulomb_gmg_tpu_torch.ops.ell import ELL as TELL
@@ -32,12 +32,11 @@ def prob():
     tab_lap = element_tables(3, 1, 2)
     pts = cell_quad_points(f, tab_lap.points)
     coeff = np.asarray(JP.step16_coefficient(jnp.asarray(pts)))
-    plan_j = JA.build_plan(dofs.cell2dof, con)
-    plan_t = TA.build_plan(dofs.cell2dof, con)
+    plan_j = JA.build_plan(dofs.host.cell2dof, con)
     K = JI.stiffness_cells_np(tab_lap, f.cell_h(), coeff)
     F = JI.rhs_cells_np(tab_rhs, f.cell_h(), rho)
     return dict(f=f, con=con, rho=rho, tab_lap=tab_lap, tab_rhs=tab_rhs,
-                coeff=coeff, plan_j=plan_j, plan_t=plan_t, K=K, F=F,
+                coeff=coeff, plan_j=plan_j, K=K, F=F,
                 jdata=JA.assemble_np(plan_j, K, F))
 
 
@@ -57,32 +56,9 @@ def test_element_integrals_match_jax(prob, with_coeff):
     assert rel_err(out_f.numpy(), ref_f) < 1e-12
 
 
-def test_plan_matches_jax(prob):
-    pj, pt = prob["plan_j"], prob["plan_t"]
-    assert prob["con"].rows.size and len(pj.md_cell)   # dirty cells exist
-    for name in ("clean_idx", "r_dof_clean", "m_pos", "md_cell", "md_i",
-                 "md_j", "md_w", "d_cell", "d_i", "d_pos", "d_dof", "d_g",
-                 "dirty_idx", "rd_cell", "rd_i", "rd_w", "rd_dof",
-                 "gd_local"):
-        np.testing.assert_array_equal(getattr(pt, name), getattr(pj, name),
-                                      err_msg=name)
-    np.testing.assert_array_equal(pt.pattern.indptr, pj.pattern.indptr)
-    np.testing.assert_array_equal(pt.pattern.indices, pj.pattern.indices)
-    rows = np.repeat(np.arange(pt.pattern.n_rows), np.diff(pt.pattern.indptr))
-    np.testing.assert_array_equal(pt.pattern.pos_of(rows, pt.pattern.indices),
-                                  np.arange(pt.pattern.nnz))
-
-
-def test_assemble_np_matches_jax(prob):
-    data, rhs = TA.assemble_np(prob["plan_t"], prob["K"], prob["F"])
-    jdata, jrhs = prob["jdata"]
-    assert rel_err(data, jdata) < 1e-12
-    assert rel_err(rhs, jrhs) < 1e-12
-
-
 @pytest.mark.parametrize("product", ["matvec", "matvec_T", "diagonal"])
 def test_csr_products_match_jax(prob, product):
-    pat = prob["plan_t"].pattern
+    pat = prob["plan_j"].pattern
     data = prob["jdata"][0]
     A_j = JS.CSR.from_pattern(pat.indptr, pat.indices, jnp.asarray(data))
     A_t = CSR.from_pattern(pat.indptr, pat.indices, data, device="cpu")
@@ -119,7 +95,7 @@ def test_transposed_csr_and_rectangular_products():
 
 @pytest.mark.parametrize("form", ["csr", "coo"])
 def test_ell_conversion_matches_jax(prob, form):
-    pat = prob["plan_t"].pattern
+    pat = prob["plan_j"].pattern
     data = prob["jdata"][0]
     rowids = np.repeat(np.arange(pat.n_rows), np.diff(pat.indptr))
     if form == "csr":

@@ -1,5 +1,6 @@
-"""The device CSR assembly (fem/card_assembly.py) against the host engine
-(``build_plan`` + ``assemble_np``): the pattern equal, the values and the
+"""The device CSR assembly (fem/card_assembly.py) against the JAX package's
+host engine (``build_plan`` + ``assemble_np``, coulomb_gmg_tpu/fem/
+assembly.py): the pattern equal, the values and the
 load vector within 1e-13 relative in float64 (the host's threaded sums
 and its numpy element integrals round apart) and 1e-6 in float32 (the
 float64 sums rounded to float32 on both sides, the load's element
@@ -10,12 +11,11 @@ the 8-atom float64 production run's meshes after one refinement (unit
 coefficient, the dipole far field on the boundary).  Matrices: the system
 with and without its load vector, the finest level matrix under the level
 eliminations and its interface matrix.  On the CPU the plain segment sum
-runs, held to the JAX package's numpy engine (coulomb_gmg_tpu/fem/
-assembly.py, imported in those cases alone); the ``cuda`` cases run the
-same on the card with the hand kernel, held to the port's copy of that
-engine (which tests/test_torch_assembly.py holds to JAX's), and on the
-1,000-atom float64 run check its trajectory and the engine's memory.  The
-``cuda`` cases import no JAX; on a card machine:
+runs, held to the JAX package's engine (imported in those cases alone);
+the ``cuda`` cases run the same on the card with the hand kernel, held to
+the plain version's bits on the CPU, and on the 1,000-atom float64 run
+check its trajectory and the engine's memory.  The ``cuda`` cases import
+no JAX; on a card machine:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_card_assembly.py
@@ -77,28 +77,17 @@ def _level_set(edge, bnd) -> Constraints:
                        inhomog=np.zeros(len(rows)), n_dofs=len(edge))
 
 
-def _host_engine(use_jax):
-    """(build_plan, assemble_np, stiffness_cells_np, rhs_cells_np): JAX's
-    numpy engine, or the port's."""
-    if use_jax:
-        from coulomb_gmg_tpu.fem import assembly as A, integrals as I
-    else:
-        from coulomb_gmg_tpu_torch.fem import assembly as A, integrals as I
-    return A.build_plan, A.assemble_np, I.stiffness_cells_np, I.rhs_cells_np
-
-
 def _case(mesh, matrix, dev, dtype, use_jax):
-    """(host (indptr, indices, data, rhs) in ``dtype``, by JAX's engine
-    with ``use_jax``, card callable giving the same from ``dev``)."""
+    """(reference (indptr, indices, data, rhs) in ``dtype``: JAX's host
+    engine with ``use_jax``, else the plain version on the CPU; card
+    callable giving the same from ``dev``)."""
     f, con, rho, tab_rhs, coeff = mesh
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    build_plan, assemble_np, stiffness_cells_np, rhs_cells_np = \
-        _host_engine(use_jax)
     tab = element_tables(3, 1, 2)
     if matrix.startswith("system"):
         c2d, h, cset = f.dofs_of(1).host.cell2dof, f.cell_h(), con
         cq = coeff
-        ccon = lambda: CA.card_constraints(con, dev)
+        ccon = lambda dev: CA.card_constraints(con, dev)
     else:
         ld = f.dofs_of(1).host.levels[-1]
         edge, bnd = ld.interface, ld.boundary
@@ -111,8 +100,31 @@ def _case(mesh, matrix, dev, dtype, use_jax):
         h = f.h(ld.level) * np.ones(len(c2d))
         cq = None
         elim = (edge | bnd) if matrix == "level" else np.zeros_like(edge)
-        ccon = lambda: CA.eliminated(torch.from_numpy(elim).to(dev))
+        ccon = lambda dev: CA.eliminated(torch.from_numpy(elim).to(dev))
     want_rhs = matrix == "system_rhs"
+
+    def card(dev=dev):
+        hd = torch.from_numpy(h).to(dev)
+        keep = None
+        if matrix == "interface":
+            e, bn = (torch.from_numpy(edge).to(dev),
+                     torch.from_numpy(bnd).to(dev))
+            keep = lambda r, c: e[r] & ~e[c] & ~bn[r] & ~bn[c]
+        p = CA.plan(torch.from_numpy(c2d).to(dev), ccon(dev), rhs=want_rhs,
+                    keep=keep)
+        k = CA.cell_matrices(tab, hd, cq, dtype)
+        fc = None
+        if want_rhs:
+            fc = rhs_cells(tab_rhs, hd, torch.from_numpy(rho).to(dev),
+                           dtype=dtype)
+        d, b = CA.assemble(p, k, fc, dtype)
+        return (p.pattern.indptr, p.pattern.indices, d.cpu().numpy(),
+                None if b is None else b.cpu().numpy())
+
+    if not use_jax:
+        return card(torch.device("cpu")), card
+    from coulomb_gmg_tpu.fem.assembly import assemble_np, build_plan
+    from coulomb_gmg_tpu.fem.integrals import rhs_cells_np, stiffness_cells_np
     plan = build_plan(c2d, cset)
     F = rhs_cells_np(tab_rhs, h, rho, dtype=np_dtype) if want_rhs else None
     data, rhs = assemble_np(plan, stiffness_cells_np(tab, h, cq,
@@ -124,26 +136,7 @@ def _case(mesh, matrix, dev, dtype, use_jax):
         c = plan.pattern.indices
         data = np.where(edge[r] & ~edge[c] & ~bnd[r] & ~bnd[c], data,
                         0.0).astype(np_dtype)
-    host = (plan.pattern.indptr, plan.pattern.indices, data, rhs)
-
-    def card():
-        hd = torch.from_numpy(h).to(dev)
-        keep = None
-        if matrix == "interface":
-            e, bn = (torch.from_numpy(edge).to(dev),
-                     torch.from_numpy(bnd).to(dev))
-            keep = lambda r, c: e[r] & ~e[c] & ~bn[r] & ~bn[c]
-        p = CA.plan(torch.from_numpy(c2d).to(dev), ccon(), rhs=want_rhs,
-                    keep=keep)
-        k = CA.cell_matrices(tab, hd, cq, dtype)
-        fc = None
-        if want_rhs:
-            fc = rhs_cells(tab_rhs, hd, torch.from_numpy(rho).to(dev),
-                           dtype=dtype)
-        d, b = CA.assemble(p, k, fc, dtype)
-        return (p.pattern.indptr, p.pattern.indices, d.cpu().numpy(),
-                None if b is None else b.cpu().numpy())
-    return host, card
+    return (plan.pattern.indptr, plan.pattern.indices, data, rhs), card
 
 
 def _device(name):
@@ -180,9 +173,7 @@ def test_card_assembly_matches_host(mesh, matrix, dtype, device):
         # the kernel ran, a sum for the matrix and one for the load, and
         # summed the matrix to the plain version's bits
         assert CA.segment_sum.launches == before + 2 * (1 + (rhs is not None))
-        _, plain = _case(mesh, matrix, torch.device("cpu"), dtype,
-                         use_jax=False)
-        np.testing.assert_array_equal(got[2], plain()[2])
+        np.testing.assert_array_equal(got[2], data)
 
 
 @pytest.mark.cuda

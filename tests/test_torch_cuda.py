@@ -541,8 +541,7 @@ def test_sharded_ell_apply_on_card(card, dtype):
     """A CSR operator row-partitioned over three shards of one card, ghosts
     imported: the ELL kernel per shard gives the single-device kernel's
     bits."""
-    from coulomb_gmg_tpu_torch.fem.assembly import assemble_np, build_plan
-    from coulomb_gmg_tpu_torch.fem.integrals import stiffness_cells_np
+    from coulomb_gmg_tpu_torch.fem import card_assembly as CA
     from coulomb_gmg_tpu_torch.ops.spmv import CSR
     from coulomb_gmg_tpu_torch.parallel.sharded import (
         HaloPlan, ShardedCSR, apply_ells, halo_import, put_blocks,
@@ -550,9 +549,10 @@ def test_sharded_ell_apply_on_card(card, dtype):
     from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
     from torch_parity import refined_problem
     f, dofs, con, _, _ = refined_problem(2)
-    plan = build_plan(dofs.cell2dof, con)
-    K = stiffness_cells_np(element_tables(3, 1, 2), f.cell_h())
-    data, _ = assemble_np(plan, K)
+    plan = CA.plan(dofs.cell2dof.to(card), CA.card_constraints(con, card))
+    K = CA.cell_matrices(element_tables(3, 1, 2),
+                         torch.from_numpy(f.cell_h()).to(card))
+    data = CA.assemble(plan, K)[0].cpu().numpy()
     A = CSR.from_pattern(plan.pattern.indptr, plan.pattern.indices, data,
                          device=card)
     x = np.random.default_rng(3).standard_normal(A.n_rows)

@@ -20,6 +20,7 @@ import torch
 
 from coulomb_gmg_tpu.config import golden_gaussian_config as jax_golden
 from coulomb_gmg_tpu.driver import Simulation as JaxSimulation
+from coulomb_gmg_tpu.fem.assembly import assemble_np, build_plan
 from coulomb_gmg_tpu.models import problems as JP
 from coulomb_gmg_tpu.models.atoms import two_atom_pair as jax_pair
 from coulomb_gmg_tpu.ops.spmv import CSR as JCSR
@@ -29,7 +30,6 @@ from coulomb_gmg_tpu.utils.logging import Pcout as JaxPcout
 from coulomb_gmg_tpu_torch.config import (golden_gaussian_config,
                                           production_scaling_config)
 from coulomb_gmg_tpu_torch.driver import Simulation
-from coulomb_gmg_tpu_torch.fem.assembly import assemble_np, build_plan
 from coulomb_gmg_tpu_torch.fem.constraints import build_constraints
 from coulomb_gmg_tpu_torch.fem.integrals import stiffness_cells_np
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
@@ -70,7 +70,7 @@ def _step16_system(dtype, box: bool = False):
     con = build_constraints(dofs, None)
     coeff = None if box else np.asarray(JP.step16_coefficient(jnp.asarray(
         cell_quad_points(f, tab.points))))
-    plan = build_plan(dofs.cell2dof, con)
+    plan = build_plan(dofs.host.cell2dof, con)
     np_dt = np.float32 if dtype == torch.float32 else np.float64
     data, _ = assemble_np(plan, stiffness_cells_np(tab, f.cell_h(), coeff,
                                                    dtype=np_dt),

@@ -3,7 +3,7 @@ convert.py) against the JAX StencilGMG on one refined forest with hanging
 nodes and inhomogeneous Dirichlet values, float64.
 
 Tolerances: DST coarse apply rel 1e-10; cellwise matvec rel 1e-12; RHS
-rel 1e-12 against fem/assembly.py:assemble_np (not against the JAX
+rel 1e-12 against the JAX package's host assembly (not against the JAX
 ``_rhs_device``, which is ~2^-24 off on boundary-adjacent rows); a full
 solve takes the same CG count with solutions within rel 1e-8; on the
 converted JAX operator set the first V-cycle (one CG step) agrees to

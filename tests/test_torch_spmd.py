@@ -6,8 +6,12 @@ inputs, the JAX package on the 8 virtual CPU devices of tests/conftest.py.
   (tests/test_spmd_tiles.py) and agrees with JAX's sharded tile density
   to the tile kernel's float32 tolerance (nonzero pattern equal, atol
   2e-6 max, rtol 2e-5); the sharded Kelly estimate equals the host one
-  and JAX's sharded one to rel 1e-12; the sharded mask/list density, FE
-  error and assembly agree with their single-device versions;
+  and JAX's sharded one to rel 1e-12; the sharded mask/list density and
+  FE error agree with their single-device versions, the sharded assembly
+  with the JAX package's host engine;
+* the sharded assembly's tables: every shard's entries reach each CSR
+  slot and load-vector row in the order of the JAX package's host plan
+  split by owner, and the sums keep their pinned bits;
 * ``ShardedGMG`` and the sharded Jacobi-CG on the ``small_sim`` of
   tests/test_sharded_gmg.py: solutions within rel 1e-8 of one shard, the
   same CG count for every D, the halo import equal to the all-gather;
@@ -23,6 +27,7 @@ inputs, the JAX package on the 8 virtual CPU devices of tests/conftest.py.
   test_spmd_pipeline.py:102).
 """
 
+import hashlib
 import os
 import re
 
@@ -34,9 +39,7 @@ from coulomb_gmg_tpu_torch.adapt.estimator import build_face_plan, estimate
 from coulomb_gmg_tpu_torch.config import (golden_gaussian_config,
                                           production_scaling_config)
 from coulomb_gmg_tpu_torch.driver import Simulation
-from coulomb_gmg_tpu_torch.fem import assembly
-from coulomb_gmg_tpu_torch.fem.assembly import (assemble_np, build_plan,
-                                                gather_sum)
+from coulomb_gmg_tpu_torch.fem import card_assembly as CA
 from coulomb_gmg_tpu_torch.fem.integrals import (rhs_cells_np,
                                                  stiffness_cells_np)
 from coulomb_gmg_tpu_torch.models.atoms import nacl_lattice, two_atom_pair
@@ -48,7 +51,8 @@ from coulomb_gmg_tpu_torch.parallel.sharded import (
     HaloPlan, ShardedCSR, halo_import, make_sharded_solver, put_blocks,
     shard_vector, sharded_diag)
 from coulomb_gmg_tpu_torch.parallel.sharded_gmg import ShardedGMG
-from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext
+from coulomb_gmg_tpu_torch.parallel import spmd
+from coulomb_gmg_tpu_torch.parallel.spmd import SpmdContext, gather_sum
 from coulomb_gmg_tpu_torch.postprocess.energy import energy_norm_error
 from coulomb_gmg_tpu_torch.utils.logging import Pcout
 from torch_parity import CUT, R_C, refined_problem, tile_setup
@@ -168,7 +172,7 @@ def test_energy_norm_error_matches_single_device(dtype, tol):
 def test_gather_sum_equals_index_add(width, monkeypatch):
     """The rounds of gather_sum (targets hit 1 to 200 times) give the sums
     of index_add, and the same bits on a second call."""
-    monkeypatch.setattr(assembly, "GATHER_WIDTH", width)
+    monkeypatch.setattr(spmd, "GATHER_WIDTH", width)
     rng = np.random.default_rng(width)
     pos = np.repeat(rng.permutation(500)[:300], rng.integers(1, 200, 300))
     pos = rng.permutation(pos)
@@ -184,10 +188,13 @@ def test_gather_sum_equals_index_add(width, monkeypatch):
                                            (np.float32, 1e-5)])
 def test_assembler_matches_host_assembly(np_dtype, tol):
     """Per-shard element tensors gathered into the CSR slots and summed
-    over the shards (hanging nodes, inhomogeneous constraints)."""
+    over the shards (hanging nodes, inhomogeneous constraints), against
+    the JAX package's host engine."""
+    from coulomb_gmg_tpu.fem.assembly import assemble_np, build_plan
     f, dofs, con, rho, tab = refined_problem(1)
     tab_lap = element_tables(3, 1, 2)
-    plan = build_plan(dofs.cell2dof, con)
+    plan = build_plan(dofs.host.cell2dof, con)
+    cplan = CA.plan(dofs.cell2dof, CA.card_constraints(con, "cpu"), rhs=True)
     h = f.cell_h()
     coeff = 1.0 + np.random.default_rng(5).random((f.n_cells,
                                                    len(tab_lap.points)))
@@ -195,7 +202,7 @@ def test_assembler_matches_host_assembly(np_dtype, tol):
         K = stiffness_cells_np(tab_lap, h, coeff_q, dtype=np_dtype)
         F = rhs_cells_np(tab, h, rho, dtype=np_dtype)
         data, rhs = assemble_np(plan, K, F, dtype=np_dtype)
-        asm = ctx(3).build_assembler(plan, tab_lap, tab,
+        asm = ctx(3).build_assembler(cplan, tab_lap, tab,
                                      has_coeff=coeff_q is not None,
                                      np_dtype=np_dtype)
         got_d, got_r = asm(h, coeff_q, rho)
@@ -203,6 +210,101 @@ def test_assembler_matches_host_assembly(np_dtype, tol):
                                    atol=tol * np.abs(data).max())
         np.testing.assert_allclose(got_r, rhs, rtol=tol,
                                    atol=tol * np.abs(rhs).max())
+
+
+# sha256 of the sharded sums on refined_problem(1): the data and the rhs
+# with the unit coefficient, then with the random one, as the assembler
+# over the host plan summed them; any change to the order of a slot's
+# additions changes them
+SUMS_SHA256 = {
+    (1, np.float64): "738e10ebb198611c21f406f79cd0a1ce"
+                     "650c3a23d3cdeaebc7c8746e73fd7650",
+    (2, np.float64): "3f50da0395c25804b8ff75614a4bef48"
+                     "713c75b9f78cf98c0f864264b97c3621",
+    (3, np.float64): "10db498983a5eb477854ea021e641894"
+                     "c60fd5d70f86eb06136a356d9dca011a",
+    (2, np.float32): "3a2db19c545fbd886a85a8f04bf737bb"
+                     "bf2f136df2a1405e0d814feb7846d316",
+}
+
+
+def _by_slot(*cols):
+    """The columns reordered as gather_sum sums them: stably by slot (the
+    last column)."""
+    order = np.argsort(cols[-1], kind="stable")
+    return [np.asarray(c)[order] for c in cols]
+
+
+@pytest.mark.parametrize("D, np_dtype", list(SUMS_SHA256),
+                         ids=[f"D{d}-{np.dtype(t).name}"
+                              for d, t in SUMS_SHA256])
+def test_assembler_entry_order_matches_jax_plan(D, np_dtype):
+    """Each shard's per-slot entry sequences (cell, local i, j, weight,
+    slot; for the load vector cell, i, whether lifted, weight, row), read
+    from the tables the assembler derives from the card plan, equal in
+    order those of the JAX package's ``AssemblyPlan`` split by owner; the
+    sums keep their bits (``SUMS_SHA256``)."""
+    from coulomb_gmg_tpu.fem.assembly import build_plan
+    f, dofs, con, rho, tab = refined_problem(1)
+    tab_lap = element_tables(3, 1, 2)
+    jp = build_plan(dofs.host.cell2dof, con)
+    assert len(jp.md_cell) and len(jp.d_cell)       # dirty cells, diagonals
+    cplan = CA.plan(dofs.cell2dof, CA.card_constraints(con, "cpu"), rhs=True)
+    c = ctx(D)
+    n_cells, nb = f.n_cells, jp.n_basis
+    owner, B = c.owners(n_cells), c.block(n_cells)
+    nc = len(jp.clean_idx)
+    ar = np.arange(nb)
+    m_cell = np.concatenate([np.repeat(jp.clean_idx, nb * nb), jp.md_cell,
+                             jp.d_cell])
+    m_i = np.concatenate([np.tile(np.repeat(ar, nb), nc), jp.md_i, jp.d_i])
+    m_j = np.concatenate([np.tile(ar, nc * nb), jp.md_j, jp.d_i])
+    m_w = np.concatenate([np.ones(nc * nb * nb), jp.md_w,
+                          np.ones(len(jp.d_cell))])
+    m_slot = np.concatenate([jp.m_pos, jp.d_pos])
+    r_cell = np.concatenate([np.repeat(jp.clean_idx, nb),
+                             jp.dirty_idx[jp.rd_cell]])
+    r_i = np.concatenate([np.tile(ar, nc), jp.rd_i])
+    r_lift = np.repeat([False, True], [nc * nb, len(jp.rd_cell)])
+    r_w = np.concatenate([np.ones(nc * nb), jp.rd_w])
+    r_slot = np.concatenate([jp.r_dof_clean, jp.rd_dof])
+    tables = c.assembly_tables(cplan)
+    assert len(tables) == D
+    for d, sh in enumerate(tables):
+        mine = owner[m_cell] == d
+        want = _by_slot(m_cell[mine], m_i[mine], m_j[mine], m_w[mine],
+                        m_slot[mine])
+        got = _by_slot(d * B + sh["mflat"] // (nb * nb),
+                       sh["mflat"] // nb % nb, sh["mflat"] % nb, sh["mw"],
+                       sh["mpos"])
+        for name, g, w in zip(("cell", "i", "j", "w", "slot"), got, want):
+            np.testing.assert_array_equal(g, w, err_msg=f"shard {d}: {name}")
+        mine = owner[r_cell] == d
+        want = _by_slot(r_cell[mine], r_i[mine], r_lift[mine], r_w[mine],
+                        r_slot[mine])
+        n_own = len(c.cells(d, n_cells))
+        lift = sh["rflat"] >= n_own * nb
+        k = sh["rflat"] - n_own * nb
+        cell = np.where(lift, sh["dirty"][np.where(lift, k // nb, 0)],
+                        sh["rflat"] // nb) + d * B
+        got = _by_slot(cell, sh["rflat"] % nb, lift, sh["rw"], sh["rpos"])
+        for name, g, w in zip(("cell", "i", "lifted", "w", "row"), got,
+                              want):
+            np.testing.assert_array_equal(g, w, err_msg=f"shard {d}: {name}")
+        dd = owner[jp.dirty_idx] == d
+        np.testing.assert_array_equal(sh["dirty"] + d * B, jp.dirty_idx[dd])
+        np.testing.assert_array_equal(sh["g"], jp.gd_local[dd])
+    coeff = 1.0 + np.random.default_rng(5).random((n_cells,
+                                                   len(tab_lap.points)))
+    digest = hashlib.sha256()
+    for coeff_q in (None, coeff):
+        asm = c.build_assembler(cplan, tab_lap, tab,
+                                has_coeff=coeff_q is not None,
+                                np_dtype=np_dtype)
+        for part in asm(f.cell_h(), coeff_q, rho):
+            assert part.dtype == np_dtype
+            digest.update(part.tobytes())
+    assert digest.hexdigest() == SUMS_SHA256[(D, np_dtype)]
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,6 @@ from coulomb_gmg_tpu_torch import profile_topology
 from coulomb_gmg_tpu_torch.ops import stencil as TS
 from coulomb_gmg_tpu_torch.solver import device_gmg as TG
 from coulomb_gmg_tpu_torch.topology import topology_outputs
-from coulomb_gmg_tpu_torch.utils import native
 from coulomb_gmg_tpu_torch.utils.logging import Pcout
 from test_torch_host import CASES, _forests
 from torch_parity import jax_forest, rel_err
@@ -245,8 +244,8 @@ def test_estimate_and_marking_on_the_8_atom_trajectory(monkeypatch):
 
 def test_moved_functions_use_no_numpy_or_native_path(monkeypatch):
     """Every moved function returns tensors on the forest's device, with
-    the native engine's sorts and lookups and numpy's sort, search, unique
-    and bincount poisoned: none of them takes a host numpy path."""
+    numpy's sort, search, unique and bincount poisoned: none of them takes
+    a host numpy path."""
     fts = _forests(TM, 3, 6, 1)
     old, new = fts[-2], fts[-1]
     flags = np.random.default_rng(0).random(new.n_cells) < 0.2
@@ -257,9 +256,6 @@ def test_moved_functions_use_no_numpy_or_native_path(monkeypatch):
             raise AssertionError(f"{name} called")
         return run
 
-    for name in ("sort_unique_inverse", "lookup", "searchsorted",
-                 "gather_rows"):
-        monkeypatch.setattr(native, name, poisoned(f"native.{name}"))
     for name in ("unique", "searchsorted", "argsort", "lexsort", "bincount",
                  "sort", "nonzero", "flatnonzero"):
         monkeypatch.setattr(np, name, poisoned(f"np.{name}"))

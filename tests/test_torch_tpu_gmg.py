@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from coulomb_gmg_tpu.fem.assembly import assemble_np, build_plan
 from coulomb_gmg_tpu.models import problems as JP
 from coulomb_gmg_tpu.ops.spmv import CSR as JCSR
 from coulomb_gmg_tpu.solver import tpu_gmg as JT
 from coulomb_gmg_tpu.solver.multigrid import build_gmg as jbuild_gmg
 from coulomb_gmg_tpu.solver.tpu_cg import tpu_cg_solve as jtpu_cg_solve
-from coulomb_gmg_tpu_torch.fem.assembly import assemble_np, build_plan
 from coulomb_gmg_tpu_torch.fem.constraints import build_constraints
 from coulomb_gmg_tpu_torch.fem.integrals import stiffness_cells_np
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
@@ -50,7 +50,7 @@ def route(request):
     if step16:
         pts = cell_quad_points(f, tab.points)
         coeff = np.asarray(JP.step16_coefficient(jnp.asarray(pts)))
-    plan = build_plan(dofs.cell2dof, con)
+    plan = build_plan(dofs.host.cell2dof, con)
     data, _ = assemble_np(plan, stiffness_cells_np(tab, f.cell_h(), coeff,
                                                    dtype=np.float32),
                           None, dtype=np.float32)
