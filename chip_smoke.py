@@ -5,7 +5,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require a CUDA card; print the nvidia-smi name and power limit;
-2. build: compile the six hand kernels (coulomb_gmg_tpu_torch/csrc) with
+2. build: compile the seven hand kernels (coulomb_gmg_tpu_torch/csrc) with
    nvcc, one process per source, all started together;
 3. kernel vs plain PyTorch version on the card, at main-path shapes (the
    8,000-atom cycle-0 mesh: density plan, finest level operator, RHS and
@@ -42,10 +42,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    device_operators="off")``.  The published cells must come out exactly,
    every cycle at a true float64 residual of 1e-8 * ||b||, the solution
    finite, the earlier runs' CG counts, the ELL kernel (float64 launches
-   among them), the CSR assembly's segment sum and the SSOR sweep (one
-   launch an application, no host SSOR) launched and the tile kernel not;
+   among them), the CSR assembly's segment sum, the SSOR sweep (one
+   launch an application, no host SSOR) and the list density (one launch
+   a cycle) launched and the tile kernel not;
    it prints the stage seconds, the SSOR applications, the coarse CG
-   iterations per V-cycle and the peak device memory.  Then every level's
+   iterations per V-cycle and the peak device memory.  Then the list
+   density on that run's lists at cycle 0 (one row a cell) and at the
+   last cycle (each cell reading its cycle-0 ancestor's row), in float64
+   and float32: against the plain list branch on the CPU (float64 within
+   1e-14 of the largest value, float32 no farther from the float64 sums
+   than twice the plain float32 branch), empty rows and the padding row
+   exactly zero, the same bits on repeat, the kernel timed (operands on the card)
+   beside the plain branch's one call, with its bound.  Then every level's
    card SSOR against the scipy sweep on one defect (rel 1e-13, the same
    bits on repeat), both timed beside cuSPARSE's triangular solves, with
    the sweep's bounds (bytes, and the depth of its rows' dependency
@@ -233,7 +241,7 @@ STEP16_F32 = dict(cells=[4096, 5307, 7526, 10032, 17312],
                   cg=[6, 15, 15, 17, 17], slack=1)
 STEP16_JACOBI = dict(cells=[4096, 5307, 7526], cg=[13, 19, 28], slack=4)
 KERNELS = ("ell_spmv", "tile_density", "dense_density", "exact_gradient",
-           "segment_sum", "ssor_sweep")
+           "segment_sum", "ssor_sweep", "list_density")
 
 
 def phase_device():
@@ -267,7 +275,7 @@ def phase_build():
 
 
 def counters():
-    from coulomb_gmg_tpu_torch.ops.density import dense_density
+    from coulomb_gmg_tpu_torch.ops.density import dense_density, list_density
     from coulomb_gmg_tpu_torch.ops.ell import ell_mv
     from coulomb_gmg_tpu_torch.ops.gradient import exact_gradient
     from coulomb_gmg_tpu_torch.ops.tile_density import tile_density
@@ -275,7 +283,8 @@ def counters():
     from coulomb_gmg_tpu_torch.ops.smoothers import ssor_sweep
     return {"ell_spmv": ell_mv, "tile_density": tile_density,
             "dense_density": dense_density, "exact_gradient": exact_gradient,
-            "segment_sum": segment_sum, "ssor_sweep": ssor_sweep}
+            "segment_sum": segment_sum, "ssor_sweep": ssor_sweep,
+            "list_density": list_density}
 
 
 def reset_counts():
@@ -977,6 +986,7 @@ def phase_host_f64():
     coarse_s = spans["solve.coarse"]["total_s"]
     reads_s = solve_counts.get("host_read_ns", 0) / 1e9
     peak = torch.cuda.max_memory_allocated() / 2**30
+    dens_row = list_densities(sim, "host f64")
     ssor_row = ssor_levels(ssor.values(), "host f64")
     sys_ell = host_f64_system(sim)
     ell_csr_levels(sim.gmg, "host f64")
@@ -1007,6 +1017,7 @@ def phase_host_f64():
             and launches["tile_density"] == 0
             and launches["segment_sum"] > 0
             and launches["ssor_sweep"] == calls > 0
+            and launches["list_density"] == len(res)
             and "smoother.ssor_host" not in spans):
         raise AssertionError(f"host f64: launch counts {launches}, float64 "
                              f"ELL {f64}, card SSOR applications {calls}, "
@@ -1022,7 +1033,75 @@ def phase_host_f64():
                              f"{sys_ell['bound_ms']:.4f}: not within 1.10x "
                              f"of torch.mv, 1.5x faster than padded and at "
                              f"60% of the bound")
-    return launches, ssor_row
+    return launches, ssor_row, dens_row
+
+
+def list_densities(sim, tag):
+    """The list density kernel on the lists of ``sim``'s finished run, at
+    its cycle 0 (the initial mesh, one row a cell) and its last cycle
+    (``home`` carried), in float64 and float32, against the plain list
+    branch on the CPU: float64 within 1e-14 of the largest value; float32
+    no farther from the float64 sums than twice the plain branch's own
+    float32 sums are (both round every factor and term to float32, at
+    coordinates up to the box's); empty rows and the padding row exactly
+    zero, the same bits on repeat; timed with its operands on the card
+    beside the plain branch's one call, with its bound.  Returns the last
+    cycle's float64 row."""
+    import torch
+    from coulomb_gmg_tpu_torch import roofline
+    from coulomb_gmg_tpu_torch.ops import density as dd
+    from coulomb_gmg_tpu_torch.ops.neighbors import AtomLists
+    last = sim.lists
+    first = AtomLists(last.ptr, last.atoms,
+                      np.arange(len(last.ptr) - 1, dtype=np.int32))
+    at, pts, r_c = sim.atoms, sim.tab_rhs.points, sim.cfg.r_c
+    row = None
+    for cyc, f, lists in (("cycle 0", sim.make_initial_mesh(), first),
+                          ("last cycle", sim.forest, last)):
+        counts = lists.counts
+        empty = torch.from_numpy(np.append(counts == 0, True))
+        dens = (f, pts, at.positions, at.charges, r_c)
+        exact = None
+        for dt in (torch.float64, torch.float32):
+            kw = dict(lists=lists, dtype=dt, n_out=f.n_cells + 1)
+            out = dd.compute_density(*dens, "cuda", **kw)
+            same = all(torch.equal(dd.compute_density(*dens, "cuda", **kw),
+                                   out) for _ in range(3))
+            t0 = time.perf_counter()
+            plain = dd.compute_density(*dens, "cpu", **kw)
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            out = out.cpu()
+            if exact is None:
+                exact = plain
+            big = float(exact.abs().max())
+            err = float((out.double() - exact).abs().max())
+            plain_err = float((plain.double() - exact).abs().max())
+            diff = float((out - plain).abs().max())
+            limit = 1e-14 * big if dt == torch.float64 else 2 * plain_err
+            zero = bool((out[empty] == 0).all())
+            if not (err <= limit and same and zero
+                    and (out[~empty] != 0).any()):
+                raise AssertionError(
+                    f"list_density {tag} {cyc} {dt}: max err {err:.3e} > "
+                    f"{limit:.3e} (max|rho| {big:.3e}), same bits on repeat "
+                    f"{same}, empty rows zero {zero}")
+            args, okw = dd.list_operands(*dens, lists, "cuda", dt,
+                                         n_out=f.n_cells + 1)
+            ms = median_ms(lambda: dd.list_density_cuda(*args, **okw))
+            b = roofline.list_density(args, okw, out)
+            print(f"[list_density {tag} {cyc} {dt}] {f.n_cells} cells, "
+                  f"{int((counts == 0).sum())} empty, {b['terms']} entries, "
+                  f"{len(pts)} points; max|err| against float64 plain "
+                  f"{err:.3e} ({err / big:.2e} of max|rho| {big:.3e}; the "
+                  f"plain branch in this precision {plain_err:.3e}, kernel "
+                  f"vs it {diff:.3e}); same bits on repeat; kernel "
+                  f"{ms:.4f} ms, plain on the CPU {plain_ms:.1f} ms (one "
+                  f"call); {bound_text(b, ms)}", flush=True)
+            if dt == torch.float64:
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                           library_ms=None)
+    return row
 
 
 def ssor_levels(ssors, tag):
@@ -2170,7 +2249,8 @@ def main():
     main4, traj8k = timed("main path", phase_main_path)
     timed("topology", lambda: phase_topology(traj8k))
     main5 = timed("bruteforce fe", phase_bruteforce_fe)
-    main6, timing["ssor_sweep"] = timed("host f64", phase_host_f64)
+    main6, timing["ssor_sweep"], timing["list_density"] = timed(
+        "host f64", phase_host_f64)
     main7 = timed("routes", phase_routes)
     main8 = timed("device f64", phase_device_f64)
     main9, spmd_sim = timed("multi device", phase_multi_device)
@@ -2194,7 +2274,9 @@ def main():
                 "segment_sum": "no kernel: coulomb_gmg_tpu/fem/assembly.py:"
                                "253 (assemble_np, host numpy)",
                 "ssor_sweep": "no kernel: coulomb_gmg_tpu/ops/smoothers.py:"
-                              "make_ssor_host (host scipy)"}
+                              "make_ssor_host (host scipy)",
+                "list_density": "no kernel: coulomb_gmg_tpu/ops/density.py:"
+                                "compute_density (jnp list branch)"}
     # launches: the sum over the main-path runs (phases 4 to 14)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
@@ -2205,7 +2287,8 @@ def main():
                                            main12, main13, main14)),
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
-                     "exact_gradient", "segment_sum", "ssor_sweep")]}
+                     "exact_gradient", "segment_sum", "ssor_sweep",
+                     "list_density")]}
     print(f"[smoke] total {time.time() - t0:.1f} s; phases {seconds}",
           flush=True)
     print(smi)

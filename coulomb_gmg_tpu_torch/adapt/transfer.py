@@ -24,6 +24,7 @@ from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.forest import (
     Forest, KeyIndex, active_level_index, corner_offsets, node_offsets,
     to_host)
+from coulomb_gmg_tpu_torch.ops.neighbors import AtomLists
 from coulomb_gmg_tpu_torch.ops.q1 import _basis_at
 
 
@@ -216,9 +217,12 @@ def coarsen_cell_mask(old: Forest, new: Forest,
     """Per-cell data under coarsening: a parent receives the UNION of its
     children's atom sets (the conservative closure of the support
     criterion; surviving cells copy).  Works for dense boolean masks
-    (cells, n_atoms) and padded int atom lists (cells, K) with -1 padding;
-    list unions widen K as needed."""
+    (cells, n_atoms) and padded int atom lists (cells, K) with -1 padding
+    (an ``AtomLists`` is taken as its padded lists); list unions widen K as
+    needed."""
     surv, mnew, mch = coarsen_map(old, new)
+    if isinstance(mask_old, AtomLists):
+        mask_old = mask_old.padded()
     mask_old = np.asarray(mask_old)
     if mask_old.dtype == bool:
         out = np.zeros((new.n_cells,) + mask_old.shape[1:], dtype=bool)

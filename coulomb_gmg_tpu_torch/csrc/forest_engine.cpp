@@ -44,14 +44,15 @@ extern "C" {
 // each cell probes the buckets overlapped by its cutoff-inflated bounding
 // box and applies the exact corner-distance criterion
 //   min_v |x - v|^2 = sum_d min((x_d - lo_d)^2, (x_d - lo_d - h)^2) < c^2.
-// Two-phase: K == 0 -> fill counts only; K > 0 -> also fill the padded
-// (m, K) int32 list matrix (-1 padding), candidates emitted in bucket
-// order (deterministic).  Parallel over cells, no temporaries.
+// Two-phase: ptr == nullptr -> fill counts only; else also write cell c's
+// atoms to atoms[ptr[c] ...] (the compact lists, ptr the counts' running
+// sum), candidates emitted in bucket order (deterministic).  Parallel over
+// cells, no temporaries.
 void cgmg_atom_lists(const double* lower, const double* hh, int64_t m,
                      int64_t dim, const double* spos, const int64_t* aorder,
                      const int64_t* bstarts, const int64_t* bshape,
                      const double* borigin, double pitch, double cutoff,
-                     int64_t K, int32_t* lists, int64_t* counts) {
+                     const int64_t* ptr, int32_t* atoms, int64_t* counts) {
   const double c2 = cutoff * cutoff;
   parallel_for(m, [&](int64_t clo, int64_t chi, unsigned) {
     int64_t blo[3], bhi[3], bi[3];
@@ -78,7 +79,7 @@ void cgmg_atom_lists(const double* lower, const double* hh, int64_t m,
             d2 += std::min(u * u, v * v);
           }
           if (d2 < c2) {
-            if (K > 0 && cnt < K) lists[c * K + cnt] = (int32_t)aorder[a];
+            if (ptr != nullptr) atoms[ptr[c] + cnt] = (int32_t)aorder[a];
             ++cnt;
           }
         }

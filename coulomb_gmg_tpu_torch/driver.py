@@ -69,7 +69,7 @@ import torch
 from coulomb_gmg_tpu_torch.adapt.estimator import (
     build_face_plan, update_face_plan, estimate, mark_cells)
 from coulomb_gmg_tpu_torch.adapt.transfer import (
-    old_cell_of_new, transfer_cell_mask, transfer_solution)
+    old_cell_of_new, transfer_solution)
 from coulomb_gmg_tpu_torch.config import Config
 from coulomb_gmg_tpu_torch.device import resolve, upload
 from coulomb_gmg_tpu_torch.fem import card_assembly
@@ -90,7 +90,7 @@ from coulomb_gmg_tpu_torch.models import problems as P
 from coulomb_gmg_tpu_torch.ops.density import (
     atom_masks, cell_quad_points, compute_density, density_bruteforce)
 from coulomb_gmg_tpu_torch.ops.ell import ell_mv
-from coulomb_gmg_tpu_torch.ops.neighbors import atom_lists
+from coulomb_gmg_tpu_torch.ops.neighbors import AtomLists, locality_lists
 from coulomb_gmg_tpu_torch.ops.smoothers import make_jacobi
 from coulomb_gmg_tpu_torch.ops.spmv import CSR
 from coulomb_gmg_tpu_torch.ops.tile_density import density_locality_tiles
@@ -158,8 +158,7 @@ class Simulation:
         self.forest: Forest = None
         self.solution = None
         self.flags = None
-        self.mask = None             # (cells, atoms) locality (<= 64 atoms)
-        self.lists = None            # (cells, K) atom lists (> 64 atoms)
+        self.lists = None            # AtomLists: each cell's atoms
         self.error_per_cell = None
         self.gmg = None              # StencilGMG, level GMG or ShardedGMG
         self.A = None                # the assembled system (host path)
@@ -261,7 +260,6 @@ class Simulation:
         cfg, f, at = self.cfg, self.forest, self.atoms
         c_pad = f.n_cells + 1
         cut = cfg.nonzero_radius * cfg.r_c
-        mask = self.mask if cfg.flag_rhs_assembly else None
         lists = self.lists if cfg.flag_rhs_assembly else None
         if self.spmd is not None:
             # the tile kernel per shard for float32 with locality lists,
@@ -275,8 +273,7 @@ class Simulation:
             else:
                 rho = self.spmd.density(f, self.tab_rhs.points,
                                         at.positions, at.charges, cfg.r_c,
-                                        mask=mask, lists=lists,
-                                        dtype=self.dtype)
+                                        lists=lists, dtype=self.dtype)
             rho = rho.to(self.device)
             return torch.cat([rho, rho.new_zeros(1, rho.shape[1])])
         if self._tiles():
@@ -292,10 +289,9 @@ class Simulation:
         # precision, as the JAX driver does; every other run in float64
         dt = torch.float32 if self.use_tpu_cg else torch.float64
         with span("density.kernel"):
-            rho = compute_density(f, self.tab_rhs.points, at.positions,
-                                  at.charges, cfg.r_c, self.device,
-                                  mask=mask, lists=lists, dtype=dt)
-        return torch.cat([rho, rho.new_zeros(1, rho.shape[1])])
+            return compute_density(f, self.tab_rhs.points, at.positions,
+                                   at.charges, cfg.r_c, self.device,
+                                   lists=lists, dtype=dt, n_out=c_pad)
 
     def setup(self):
         cfg = self.cfg
@@ -303,19 +299,20 @@ class Simulation:
         with self._stage("Setup system"), span("topology.dofs"):
             dofs = f.dofs_of(cfg.degree)
         if self.lammpsinput:
-            # the locality of the JAX host path: a dense mask up to 64
-            # atoms, padded lists above (the tile plan makes its own)
+            # the locality of the JAX host path (a dense mask up to 64
+            # atoms, the neighbour search above), as compact lists (the
+            # tile plan makes its own)
             if (cfg.flag_rhs_assembly and not self._tiles()
-                    and self.mask is None and self.lists is None):
+                    and self.lists is None):
                 with self._stage("RHS assembly optimization"), \
                         span("density.plan"):
                     cut = cfg.nonzero_radius * cfg.r_c
                     if self.atoms.n > 64:
-                        self.lists, _ = atom_lists(f, self.atoms.positions,
-                                                   cut)
+                        self.lists = locality_lists(
+                            f, self.atoms.positions, cut)
                     else:
-                        self.mask = atom_masks(f, self.atoms.positions, cut,
-                                               self.device)
+                        self.lists = AtomLists.from_mask(atom_masks(
+                            f, self.atoms.positions, cut, self.device))
             with self._stage("Compute charge densities"):
                 self.rho = self._density()
             with self._stage("Compute dipole moments"):
@@ -698,10 +695,10 @@ class Simulation:
         if self.error_per_cell is not None and \
                 len(self.error_per_cell) == f.n_cells:
             cell_data["error_indicator"] = to_host(self.error_per_cell)
-        if cfg.flag_atoms_support and self.lammpsinput and \
-                cfg.flag_rhs_assembly and self.mask is not None:
+        mask = self._support_mask() if cfg.flag_atoms_support else None
+        if mask is not None:
             for i in range(self.atoms.n):
-                cell_data[f"support_{i}"] = self.mask[:, i].astype(np.float64)
+                cell_data[f"support_{i}"] = mask[:, i].astype(np.float64)
         base = os.path.join(cfg.output_dir, f"solution-{cycle:05d}")
         D = self.spmd.D if self.spmd is not None else 1
         pieces = []
@@ -714,6 +711,14 @@ class Simulation:
                    cell_names=list(cell_data))
         write_visit_record(f"{base}.visit", pieces)
 
+    def _support_mask(self):
+        """The (cells, atoms) locality of a run of at most 64 atoms, as the
+        JAX driver keeps it for the support fields and the 2D grid
+        scripts; None above, or without locality lists."""
+        if self.lists is None or self.atoms.n > 64:
+            return None
+        return self.lists.mask(self.atoms.n)
+
     def refine(self):
         cfg = self.cfg
         with self._stage("Refine, solution transfer and sending atoms "
@@ -725,12 +730,8 @@ class Simulation:
                 omap = old_cell_of_new(old, new)
                 # children inherit the parent's locality (the p4est
                 # attach/unpack of src/step-50.cc:441-456)
-                if self.mask is not None:
-                    self.mask = transfer_cell_mask(old, new, self.mask,
-                                                   omap=omap)
                 if self.lists is not None:
-                    self.lists = transfer_cell_mask(old, new, self.lists,
-                                                    omap=omap)
+                    self.lists = self.lists.carried(to_host(omap))
                 u_new = to_host(transfer_solution(
                     old, new, self.solution, degree=cfg.degree, omap=omap))
             if self._face_plan is not None:
@@ -761,7 +762,7 @@ class Simulation:
         start_cycle = 0
         if cfg.resume_from:
             from coulomb_gmg_tpu_torch.utils.checkpoint import load_checkpoint
-            (forest, self.solution, self.flags, self.mask, self.lists,
+            (forest, self.solution, self.flags, self.lists,
              done) = load_checkpoint(cfg.resume_from)
             self.forest = forest.on(self.device)
             start_cycle = done + 1
@@ -786,8 +787,8 @@ class Simulation:
                 # the 2D grid scripts of src/step-50.cc:1542-1543, under
                 # the same switch as the VTU output
                 with self._stage("Output"):
-                    grid_output_debug(self.forest, self.mask, cycle, cfg.dim,
-                                      cfg.output_dir)
+                    grid_output_debug(self.forest, self._support_mask(),
+                                      cycle, cfg.dim, cfg.output_dir)
             self.assemble_system()
             if cfg.preconditioner == "GMG":
                 self.assemble_multigrid()

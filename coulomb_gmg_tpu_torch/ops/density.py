@@ -18,11 +18,15 @@ The TPU path's far-away padding points, 512-wide tiles and 2M-point
 dispatch blocks are not carried over.
 
 :func:`compute_density` is the JAX module's mask, list and brute-force
-branches in plain PyTorch on the device (float64 runs take their density
-from it, never from the float32 kernels), with :func:`atom_masks`,
-:func:`masks_to_lists` and :func:`cell_quad_points`.  Like the JAX jnp
-code it evaluates the Gaussian per axis on the tensor-product rule (dim *
-n1 * K exponentials per cell, recombined by a batched matmul).
+branches (float64 runs take their density from it, never from the float32
+kernels), with :func:`atom_masks`, :func:`masks_to_lists` and
+:func:`cell_quad_points`.  On the card a density over atom lists or masks
+is the hand kernel ``csrc/list_density.cu`` (:func:`list_density`), in
+the run's float type, over the compact lists of ops/neighbors.py:
+``AtomLists``; the plain branches run only for CPU tensors.  Like the JAX
+jnp code both evaluate the Gaussian per axis on the tensor-product rule
+(dim * n1 exponentials per (cell, atom) entry, recombined into the n1^dim
+points).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Optional
 
 from coulomb_gmg_tpu_torch.device import upload
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
+from coulomb_gmg_tpu_torch.ops.neighbors import AtomLists
 from coulomb_gmg_tpu_torch import kernels
 from coulomb_gmg_tpu_torch.utils.timer import count
 
@@ -52,6 +57,15 @@ _SIG = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong,
 _SIG_EXP = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_void_p]
 _FNS = {"dense_density_f32": _SIG, "expf_neg_f32": _SIG_EXP}
+_SIG_LIST = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+             + [ctypes.c_double] * 4 + [ctypes.c_void_p] * 2)
+_LIST_FNS = {
+    "list_density_f64": _SIG_LIST + [ctypes.c_double] * 2 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p],
+    "list_density_f32": _SIG_LIST + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p]}
 # (point, atom) pairs per chunk of the plain version: small on the CPU
 # (tests), large on the card (its comparison with the kernel)
 _PAIRS = {"cpu": 1 << 22, "cuda": 1 << 25}
@@ -59,10 +73,12 @@ _PAIRS = {"cpu": 1 << 22, "cuda": 1 << 25}
 
 def pack_atoms(positions, charges, device,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Atoms as one contiguous ``(A, 4)`` tensor of rows ``(x, y, z, q)``:
-    the float4 layout the kernels stage in shared memory."""
+    """Atoms as one contiguous ``(A, 4)`` tensor of rows ``(x, y, z, q)``
+    (coordinates past the positions' dim zero): the float4 layout the
+    kernels stage in shared memory."""
+    positions = np.asarray(positions, np.float64)
     a = np.zeros((len(positions), 4), np.float64)
-    a[:, :3] = np.asarray(positions, np.float64)
+    a[:, :positions.shape[-1]] = positions
     a[:, 3] = np.asarray(charges, np.float64)
     return upload(a, device, dtype).contiguous()
 
@@ -283,20 +299,130 @@ def _rho_block(lower, h, pref, x1, pos, qa, r_c: float) -> torch.Tensor:
     return (torch.exp(-r2 / (r_c * r_c)) * qa[:, None, :]).sum(-1)
 
 
+def _list_operands(lists: AtomLists, dev: torch.device):
+    """``ptr``, ``atoms`` and ``home`` on ``dev`` in one pinned copy of
+    int32 words, counted as one upload."""
+    n_p, n_a = 2 * len(lists.ptr), len(lists.atoms)
+    host = torch.empty(n_p + n_a + lists.n_cells, dtype=torch.int32,
+                       pin_memory=True)
+    h = host.numpy()
+    h[:n_p] = np.ascontiguousarray(lists.ptr, np.int64).view(np.int32)
+    h[n_p:n_p + n_a] = lists.atoms
+    h[n_p + n_a:] = lists.home
+    count("uploads")
+    count("upload_bytes", h.nbytes)
+    buf = host.to(dev, non_blocking=True)
+    return buf[:n_p].view(torch.int64), buf[n_p:n_p + n_a], buf[n_p + n_a:]
+
+
+def list_operands(forest: Forest, points_ref: np.ndarray, positions,
+                  charges, r_c: float, lists: AtomLists, device,
+                  dtype: torch.dtype = torch.float64,
+                  cells: Optional[range] = None,
+                  n_out: Optional[int] = None) -> tuple:
+    """The card operands of :func:`list_density_cuda` for the cells
+    ``cells`` (a range, default all; ``lists`` holds the rows of every
+    cell): ``(args, kwargs)``.  ``ptr``, ``atoms`` and ``home`` go up in
+    one pinned copy; the cells' corners are computed on the card from the
+    forest's ``level`` and ``ijk``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("list_density: the kernel runs on the card")
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError("list_density: float64 or float32")
+    dim, n_q = forest.dim, len(points_ref)
+    x1 = _tensor_rule_1d(np.asarray(points_ref, np.float64), dim)
+    if x1 is None:
+        raise ValueError(f"list_density: {n_q} points are no tensor-product "
+                         "rule")
+    c0, c1 = (0, forest.n_cells) if cells is None else (cells.start,
+                                                        cells.stop)
+    lists = lists.select(cells)
+    n_rows = c1 - c0
+    n_out = n_rows if n_out is None else int(n_out)
+    if lists.n_cells != n_rows or n_out < n_rows:
+        raise ValueError("list_density: inconsistent rows")
+    ptr, atoms, home = _list_operands(lists, dev)
+    args = (ptr, atoms, home, forest.level_t[c0:c1].to(dev),
+            forest.ijk_t[c0:c1].to(dev).contiguous(),
+            upload(np.ascontiguousarray(x1), dev, dtype),
+            pack_atoms(np.reshape(positions, (-1, dim)), charges, dev, dtype))
+    lo = np.zeros(3)
+    lo[:dim] = forest.lower
+    return args, dict(dim=dim, lower=tuple(map(float, lo)),
+                      h0=float(forest.h0), rc2=float(r_c * r_c),
+                      scale=4.0 * np.pi / (r_c ** 3 * np.pi ** 1.5),
+                      n_rows=n_rows, n_out=n_out)
+
+
+def list_density_cuda(ptr, atoms, home, level, ijk, x1, apos, *, dim: int,
+                      lower: tuple, h0: float, rc2: float, scale: float,
+                      n_rows: int, n_out: int) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream: ``(n_out, n1^dim)``
+    in the atoms' float type (``apos``, float64 or float32)."""
+    dev = apos.device
+    out = torch.empty(n_out, x1.numel() ** dim, dtype=apos.dtype,
+                      device=dev)
+    lib = kernels.library("list_density", _LIST_FNS)
+    kernels.launch(
+        lib.list_density_f64 if apos.dtype == torch.float64
+        else lib.list_density_f32, dev, "list_density", ptr.data_ptr(),
+        atoms.data_ptr(), home.data_ptr(), level.data_ptr(), ijk.data_ptr(),
+        dim, x1.numel(), *lower, h0, x1.data_ptr(), apos.data_ptr(), rc2,
+        scale, out.data_ptr(), n_rows, n_out)
+    return out
+
+
+def list_density(forest: Forest, points_ref: np.ndarray, positions,
+                 charges, r_c: float, lists: AtomLists, device,
+                 dtype: torch.dtype = torch.float64,
+                 cells: Optional[range] = None,
+                 n_out: Optional[int] = None) -> torch.Tensor:
+    """rho~ per (cell, reference point) over each cell's atom list by the
+    CUDA kernel ``csrc/list_density.cu``: ``(n_out, n_q)`` in ``dtype``
+    (float64 or float32) on the card, one row for each cell of ``cells``
+    (a range, default all; ``lists`` holds the rows of every cell), rows
+    past them exactly zero.  The lists travel to the card for this call
+    only.  Counts the (cell, atom) entries it evaluates in the run's
+    counter ``density_list_entries``."""
+    args, kw = list_operands(forest, points_ref, positions, charges, r_c,
+                             lists, device, dtype, cells, n_out)
+    count("density_list_entries", int(lists.select(cells).counts.sum()))
+    out = list_density_cuda(*args, **kw)
+    list_density.launches += 1
+    return out
+
+
+list_density.launches = 0    # kernel launches
+
+
 def compute_density(forest: Forest, points_ref: np.ndarray, positions,
                     charges, r_c: float, device, mask=None, lists=None,
                     dtype: torch.dtype = torch.float64,
                     pairs_per_chunk: int = 1 << 24,
-                    cells: Optional[range] = None) -> torch.Tensor:
+                    cells: Optional[range] = None,
+                    n_out: Optional[int] = None) -> torch.Tensor:
     """rho~ per (cell, reference quadrature point), ``(n_cells, n_q)`` on
-    ``device``: over each cell's atom list (``lists``, -1 padded), its mask
-    row (``mask``), or every atom.  Cells with an empty locality set are
-    exactly zero, and list cells are grouped by list length (classes 8,
-    32, 128, ...) so that short lists are not padded to the longest, as in
-    coulomb_gmg_tpu/ops/density.py:compute_density.  ``cells`` (a range of
-    cell indices, default all) restricts it to those cells, one row each:
-    a shard's own block (parallel/spmd.py)."""
+    ``device``: over each cell's atom list (``lists``: an ``AtomLists`` or
+    padded (n_cells, K) lists, -1 padded), its mask row (``mask``), or
+    every atom.  Cells with an empty locality set are exactly zero.
+    ``cells`` (a range of cell indices, default all) restricts it to those
+    cells, one row each: a shard's own block (parallel/spmd.py); ``n_out``
+    (default one row a cell) adds zero rows after them.
+
+    On the card, lists and masks go to :func:`list_density` (the kernel);
+    on the CPU the plain branches run, list cells grouped by list length
+    (classes 8, 32, 128, ...) so that short lists are not padded to the
+    longest, as in coulomb_gmg_tpu/ops/density.py:compute_density."""
     dev = torch.device(device)
+    if dev.type == "cuda" and (lists is not None or mask is not None):
+        if not isinstance(lists, AtomLists):
+            lists = (AtomLists.from_mask(mask) if lists is None
+                     else AtomLists.from_padded(lists))
+        return list_density(forest, points_ref, positions, charges, r_c,
+                            lists, dev, dtype, cells=cells, n_out=n_out)
+    if isinstance(lists, AtomLists):
+        lists = lists.padded()
     n_q, dim = len(points_ref), forest.dim
     sel = np.arange(forest.n_cells) if cells is None else \
         np.arange(cells.start, cells.stop)
@@ -307,7 +433,8 @@ def compute_density(forest: Forest, points_ref: np.ndarray, positions,
     x1 = _tensor_rule_1d(np.asarray(points_ref, np.float64), dim)
     x1 = put(x1) if x1 is not None else None
     pref = put(points_ref)
-    out = torch.zeros(len(sel), n_q, dtype=dtype, device=dev)
+    out = torch.zeros(len(sel) if n_out is None else n_out, n_q,
+                      dtype=dtype, device=dev)
 
     def run(rows, width, qa_of, pos_of):
         n1 = n_q if x1 is None else x1.numel()

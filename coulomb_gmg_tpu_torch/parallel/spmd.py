@@ -337,8 +337,10 @@ class SpmdContext:
                 mask=None, lists=None, dtype=torch.float64) -> torch.Tensor:
         """Charge density over each shard's own cells (src/step-50.cc:
         509-575 loops the locally owned cells): the mask, list or all-atom
-        branch of ops/density.py:compute_density in ``dtype``.  Returns
-        (n_cells, n_q) on the first shard's device."""
+        branch of ops/density.py:compute_density in ``dtype`` (on a card,
+        lists and masks by the list kernel, each shard reading its own
+        cells' rows of ``home``).  Returns (n_cells, n_q) on the first
+        shard's device."""
         self._single_process("density")
         n = forest.n_cells
         parts = [compute_density(forest, points_ref, positions, charges,

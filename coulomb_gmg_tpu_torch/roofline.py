@@ -10,9 +10,10 @@ output: the member (point, atom) terms of the locality cut, the (point,
 atom) pairs of the brute-force density whose float32 ``exp`` is not zero,
 the nonzero slots of the ELL operator, every (point, atom) pair of the
 exact gradient, near ones at the full formula's cost, every entry of
-the CSR assembly's segment sum and every product of the SSOR sweep (a
-float64 addition or FMA counts 2 operations per flop: the card's float64
-rate is half its float32 rate).  The SSOR sweep is bound by neither: its
+the CSR assembly's segment sum, every product of the SSOR sweep and
+every (cell, atom) entry of the list density (a float64 addition or FMA
+counts 2 operations per flop: the card's float64 rate is half its float32
+rate).  The SSOR sweep is bound by neither: its
 rows wait on each other, and :func:`chain_depths` counts the steps.
 """
 
@@ -106,6 +107,26 @@ def segment_sum(seg: torch.Tensor, src: torch.Tensor,
     entries = src.numel()
     return {**bound(2 * entries, nbytes(seg, src, out) + 8 * entries),
             "terms": entries}
+
+
+def list_density(args, kw, out: torch.Tensor) -> dict:
+    """One launch of ops/density.py:list_density_cuda on the operands of
+    ``list_operands``: per (cell, atom) entry, dim * n1 factors (a
+    difference, a square, a quotient and an ``exp``) and n1^dim terms (dim
+    products and a sum), doubled in float64; the lists' entries read once
+    a cell that reads them (a child reads its ancestor's row), each cell's
+    list bounds, row, level and corner, the atoms and the rule once, the
+    output written."""
+    ptr, atoms, home, level, ijk, x1, apos = args
+    dim, n1, n_rows = kw["dim"], x1.numel(), kw["n_rows"]
+    hp, hh = ptr.cpu(), home.long().cpu()
+    entries = int((hp[hh + 1] - hp[hh]).sum())
+    per = 4 * dim * n1 + (dim + 1) * n1 ** dim
+    ops = per * entries * (2 if out.dtype == torch.float64 else 1)
+    n_bytes = (atoms.element_size() * entries
+               + 2 * ptr.element_size() * n_rows
+               + nbytes(home, level, ijk, x1, apos, out))
+    return {**bound(ops, n_bytes), "terms": entries}
 
 
 def chain_depths(indptr, indices) -> tuple:

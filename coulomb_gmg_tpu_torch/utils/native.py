@@ -85,8 +85,8 @@ def _load():
             lib.cgmg_atom_lists.argtypes = [
                 f64p, f64p, ctypes.c_int64, ctypes.c_int64,
                 f64p, i64p, i64p, i64p, f64p,
-                ctypes.c_double, ctypes.c_double, ctypes.c_int64,
-                i32p, i64p]
+                ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
+                ctypes.c_void_p, i64p]
             lib.cgmg_csr_to_sliced.restype = None
             lib.cgmg_csr_to_sliced.argtypes = [
                 i64p, i64p, u8p, ctypes.c_int64, ctypes.c_int64,
@@ -112,8 +112,9 @@ def atom_lists(lower: np.ndarray, h: np.ndarray, sorted_pos: np.ndarray,
                borigin: np.ndarray, pitch: float, cutoff: float):
     """Native atom-cell locality lists (None if the engine is unavailable).
 
-    Returns (lists (m, K) int32 -1-padded, counts (m,)).  Inputs are the
-    spatial-hash tables of ops.neighbors.build_atom_buckets.
+    Returns the compact lists ``(ptr (m + 1,) int64, atoms (ptr[-1],)
+    int32)``: cell c's atoms are ``atoms[ptr[c]:ptr[c + 1]]``.  Inputs are
+    the spatial-hash tables of ops.neighbors.build_atom_buckets.
     """
     lib = _load()
     if lib is None:
@@ -127,16 +128,14 @@ def atom_lists(lower: np.ndarray, h: np.ndarray, sorted_pos: np.ndarray,
     borigin = np.ascontiguousarray(borigin, np.float64)
     m, dim = lower.shape
     counts = np.empty(m, dtype=np.int64)
-    dummy = np.empty(1, dtype=np.int32)
-    lib.cgmg_atom_lists(lower, h, m, dim, sorted_pos, aorder, bstarts,
-                        bshape, borigin, float(pitch), float(cutoff), 0,
-                        dummy, counts)
-    K = max(int(counts.max()) if m else 0, 1)
-    lists = np.full((m, K), -1, dtype=np.int32)
-    lib.cgmg_atom_lists(lower, h, m, dim, sorted_pos, aorder, bstarts,
-                        bshape, borigin, float(pitch), float(cutoff), K,
-                        lists, counts)
-    return lists, counts
+    args = (lower, h, m, dim, sorted_pos, aorder, bstarts, bshape, borigin,
+            float(pitch), float(cutoff))
+    lib.cgmg_atom_lists(*args, None, None, counts)
+    ptr = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    atoms = np.empty(int(ptr[-1]), dtype=np.int32)
+    lib.cgmg_atom_lists(*args, ptr.ctypes.data, atoms.ctypes.data, counts)
+    return ptr, atoms
 
 
 def csr_to_sliced(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,

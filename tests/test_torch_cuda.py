@@ -416,6 +416,80 @@ def test_float64_density_on_card_matches_cpu(card):
         outs[1].abs().max())
 
 
+def _list_density_case(mesh):
+    """The cycle-0 mesh's compact lists, on that mesh or carried over two
+    random refinements (each child reading its cycle-0 ancestor's row)."""
+    from coulomb_gmg_tpu_torch.adapt.transfer import old_cell_of_new
+    from coulomb_gmg_tpu_torch.mesh.forest import to_host
+    from coulomb_gmg_tpu_torch.ops.neighbors import locality_lists
+    f, atoms, _ = tile_setup(2, 2)
+    lists = locality_lists(f, atoms.positions, CUT)
+    if mesh == "refined":
+        rng = np.random.default_rng(7)
+        for _ in range(2):
+            new = f.refine(rng.random(f.n_cells) < 0.1)
+            lists = lists.carried(to_host(old_cell_of_new(f, new)))
+            f = new
+    return f, atoms, lists
+
+
+@pytest.mark.parametrize("mesh", ["uniform", "refined"])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-14),
+                                        (torch.float32, 1e-6)])
+def test_list_density_kernel_matches_plain(card, dtype, tol, mesh):
+    """csrc/list_density.cu against the plain list branch on the CPU, on
+    the 2- and 5-point rules (n1 a template argument) and the 6-point rule
+    (n1 at run time); empty rows and the padding row exactly zero;
+    the same bits on repeat; the counter equals the host count."""
+    from coulomb_gmg_tpu_torch.utils.timer import TimerOutput, span
+    f, atoms, lists = _list_density_case(mesh)
+    counts = lists.counts
+    assert 0 < (counts == 0).sum() < f.n_cells
+    for n1 in (2, 5, 6):
+        pts = element_tables(3, 1, n1).points
+        args = (f, pts, atoms.positions, atoms.charges, R_C)
+        before = dd.list_density.launches
+        tr = TimerOutput()
+        with tr.run(), span("density.kernel"):
+            rk = dd.compute_density(*args, card, lists=lists, dtype=dtype,
+                                    n_out=f.n_cells + 1)
+        assert dd.list_density.launches == before + 1
+        assert tr.summarize()["counters_by_span"]["density.kernel"][
+            "density_list_entries"] == int(counts.sum())
+        again = dd.compute_density(*args, card, lists=lists, dtype=dtype,
+                                   n_out=f.n_cells + 1)
+        assert rk.dtype == dtype and torch.equal(rk, again)
+        rk = rk.cpu()
+        rp = dd.compute_density(*args, "cpu", lists=lists, dtype=dtype)
+        assert float((rk[:-1] - rp).abs().max()) <= tol * float(
+            rp.abs().max())
+        empty = torch.from_numpy(np.append(counts == 0, True))
+        assert (rk[empty] == 0).all() and (rk[~empty] != 0).any()
+
+
+def test_list_density_takes_masks_and_shards(card):
+    """A mask and padded lists go through the same kernel; a shard's block
+    of cells (parallel/spmd.py) reads its rows of home."""
+    f, atoms, lists = _list_density_case("refined")
+    args = (f, element_tables(3, 1, 2).points, atoms.positions,
+            atoms.charges, R_C, card)
+    whole = dd.compute_density(*args, lists=lists)
+    mask = np.zeros((f.n_cells, len(atoms.charges)), bool)
+    pad = lists.padded()
+    rows = np.nonzero(pad >= 0)[0]
+    mask[rows, pad[pad >= 0]] = True
+    before = dd.list_density.launches
+    by_mask = dd.compute_density(*args, mask=mask)
+    by_padded = dd.compute_density(*args, lists=pad)
+    assert dd.list_density.launches == before + 2
+    assert torch.equal(by_padded, whole)
+    assert float((by_mask - whole).abs().max()) <= 1e-14 * float(
+        whole.abs().max())
+    cells = range(f.n_cells // 3, 2 * f.n_cells // 3)
+    part = dd.compute_density(*args, lists=lists, cells=cells)
+    assert torch.equal(part, whole[cells.start:cells.stop])
+
+
 @pytest.mark.parametrize("precision", ["float64", "float32"])
 def test_host_assembled_step16_on_card(card, precision):
     """examples/step-16.prm, 3 cycles, on the card and on the CPU: the same

@@ -72,7 +72,8 @@ def step16():
     sim = Simulation(cfg, atoms=atoms, device="cpu",
                      pcout=Pcout(enabled=False))
     res = sim.run()
-    assert sim.mask is not None and sim.mask.shape == (res[-1]["n_cells"], 2)
+    assert sim.lists.n_cells == res[-1]["n_cells"]
+    assert sim._support_mask().shape == (res[-1]["n_cells"], 2)
     return res
 
 

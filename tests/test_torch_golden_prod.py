@@ -58,7 +58,8 @@ def test_production_trajectory_8_atoms_float64():
         assert r["residual"] <= 1.01e-8 * r["l2_rhs"]
     assert res[0]["cg_start"] == pytest.approx(0.670321, rel=1e-6)
     assert np.isfinite(sim.solution).all()
-    assert sim.mask is not None and sim.lists is None     # 8 atoms: mask
+    # 8 atoms: the mask of the JAX driver, as compact lists
+    assert sim.lists.n_cells == REF_CELLS_8[-1]
 
 
 @pytest.mark.parametrize("precision", ["float32", "float64"])

@@ -116,3 +116,29 @@ def test_dense_density_counts_the_pairs_whose_exp_is_not_zero(r_c):
     assert b["terms"] == live > 0
     assert (live < r2.size) == (r_c < R_C)
     assert b["ops"] == roofline.OPS_DENSITY * live
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_list_density_counts_the_entries_its_cells_read(dtype):
+    """Each cell of a refined mesh reads its cycle-0 ancestor's row: the
+    entries are the carried lists' counts (more than the rows hold); an
+    entry costs dim * n1 factors and n1^dim terms, twice in float64."""
+    from coulomb_gmg_tpu_torch.adapt.transfer import old_cell_of_new
+    from coulomb_gmg_tpu_torch.mesh.forest import to_host
+    from coulomb_gmg_tpu_torch.ops.neighbors import locality_lists
+    f0, atoms, tab = tile_setup(1, 2, None)
+    f1 = f0.refine(np.random.default_rng(2).random(f0.n_cells) < 0.1)
+    lists0 = locality_lists(f0, atoms.positions, CUT)
+    lists = lists0.carried(to_host(old_cell_of_new(f0, f1)))
+    t = torch.from_numpy
+    x1 = dd._tensor_rule_1d(tab.points, 3)
+    args = (t(lists.ptr), t(lists.atoms), t(lists.home), t(f1.level),
+            t(f1.ijk), t(x1).to(dtype),
+            dd.pack_atoms(atoms.positions, atoms.charges, "cpu", dtype))
+    out = torch.zeros(f1.n_cells + 1, len(tab.points), dtype=dtype)
+    b = roofline.list_density(args, dict(dim=3, n_rows=f1.n_cells), out)
+    entries = int(lists.counts.sum())
+    assert b["terms"] == entries > int(lists0.counts.sum())
+    per = 4 * 3 * len(x1) + 4 * len(tab.points)
+    assert b["ops"] == per * entries * (2 if dtype == torch.float64 else 1)
+    assert b["bytes"] > 4 * entries + out.numel() * out.element_size()

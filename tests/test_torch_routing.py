@@ -179,12 +179,12 @@ def test_no_density_tiles_takes_the_mask_density(monkeypatch):
 
     tiles = _sim(_cfg(dtype="float32", n_adaptive_cycles=1))
     ref = tiles.run()
-    assert tiles.mask is None
+    assert tiles.lists is None
     monkeypatch.setattr(D, "density_locality_tiles", no_tiles)
     sim = _sim(_cfg(dtype="float32", n_adaptive_cycles=1,
                     density_tiles=False))
     res = sim.run()
-    assert sim.device_ops and sim.mask is not None
+    assert sim.device_ops and sim.lists is not None
     assert sim.rho.dtype == torch.float32
     assert res[0]["l2_rhs"] == pytest.approx(ref[0]["l2_rhs"], rel=1e-6)
 
