@@ -5,7 +5,8 @@ the card unless the caller asks for the CPU, and a CUDA device that is not
 there is an error, not a silent fall back to the CPU.  Float32 work runs
 with TF32 off, the Hopper analogue of the TPU's bf16 matmul default that
 cost 4.6e-3 of true residual in the JAX solve.  Host arrays reach a
-device through :func:`upload`, which counts them.
+device through :func:`upload`, and a matrix's pattern or values come back
+from it for a host build through :func:`read_back`; both count them.
 """
 
 from __future__ import annotations
@@ -53,3 +54,25 @@ def upload(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     count("uploads")
     count("upload_bytes", a.nbytes)
     return out
+
+
+def to_host(a) -> np.ndarray:
+    """numpy of a tensor: a CPU tensor's own memory, a card tensor through
+    one copy into pinned host memory.  numpy passes through."""
+    if not isinstance(a, torch.Tensor):
+        return a
+    if a.device.type == "cpu":
+        return a.numpy()
+    out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+    out.copy_(a)
+    return out.numpy()
+
+
+def read_back(t: torch.Tensor) -> np.ndarray:
+    """:func:`to_host` of a matrix's pattern or values ``t`` for a build on
+    the host, counted: one to the open run's ``readbacks`` and ``t``'s
+    bytes to its ``readback_bytes``, a CPU tensor standing for the
+    card's."""
+    count("readbacks")
+    count("readback_bytes", t.numel() * t.element_size())
+    return to_host(t)

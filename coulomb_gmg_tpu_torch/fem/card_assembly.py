@@ -43,9 +43,8 @@ import numpy as np
 import torch
 
 from coulomb_gmg_tpu_torch import kernels
-from coulomb_gmg_tpu_torch.device import upload
+from coulomb_gmg_tpu_torch.device import read_back, to_host, upload
 from coulomb_gmg_tpu_torch.mesh.dofs import Constraints
-from coulomb_gmg_tpu_torch.mesh.forest import to_host
 from coulomb_gmg_tpu_torch.utils.timer import count
 
 SLAB_ENTRIES = 1 << 19    # matrix entries sorted at once, about
@@ -340,12 +339,12 @@ def plan(cell2dof: torch.Tensor, con: CardConstraints, rhs: bool = False,
         seg.append((at + _excl(counts)[:-1]).to(_I32))
         at += len(run)
         row_nnz[r0:r1] += torch.bincount(rows - r0, minlength=r1 - r0)
-        indices.append(to_host(cols.to(_I32)))
+        indices.append(read_back(cols.to(_I32)))
         del run, uniq, counts, rows, cols
     seg.append(torch.tensor([at], dtype=_I32, device=dev))
     count("assembly_entries", n_entries)
     p = CardPlan(pattern=CSRPattern(
-                     n_rows=n, indptr=to_host(_excl(row_nnz)),
+                     n_rows=n, indptr=read_back(_excl(row_nnz)),
                      indices=np.concatenate(indices).astype(np.int64)),
                  n_cells=len(cell2dof), nb=nb, seg=torch.cat(seg),
                  src=src[:at], ex=ex)

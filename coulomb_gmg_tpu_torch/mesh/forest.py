@@ -30,19 +30,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu_torch.device import upload
-
-
-def to_host(a) -> np.ndarray:
-    """numpy of a tensor: a CPU tensor's own memory, a card tensor through
-    one copy into pinned host memory.  numpy passes through."""
-    if not isinstance(a, torch.Tensor):
-        return a
-    if a.device.type == "cpu":
-        return a.numpy()
-    out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-    out.copy_(a)
-    return out.numpy()
+from coulomb_gmg_tpu_torch.device import to_host, upload
 
 
 def _int64(a) -> torch.Tensor:

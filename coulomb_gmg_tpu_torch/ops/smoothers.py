@@ -139,7 +139,10 @@ def ssor_sweep(indptr, indices, vals, diag, r, omega, yp, y1, z,
     ``y1``, ``z`` float64 and ``tickets`` int32, state kept between
     applications (``yp``, ``z`` :data:`NOT_YET` and ``tickets`` zeros
     before the first).  Raises on operands the kernel does not take, and on
-    any that are not on one card."""
+    any that are not on one card.  Counted in ``ssor_sweep.launches``
+    through the module's second name for it, ``_ssor_sweep``, so that a
+    wrapper put in its place under its own name (a launch log) calls it
+    and leaves the count where its callers read it."""
     n = len(diag)
     if r.dtype not in _SSOR_FN or {vals.dtype, diag.dtype} != {r.dtype}:
         raise TypeError(f"ssor_sweep: values, diagonal and defect in one "
@@ -166,10 +169,11 @@ def ssor_sweep(indptr, indices, vals, diag, r, omega, yp, y1, z,
                    diag.data_ptr(), r.data_ptr(), float(omega),
                    yp.data_ptr(), y1.data_ptr(), z.data_ptr(), y.data_ptr(),
                    tickets.data_ptr(), n)
-    ssor_sweep.launches += 1
+    _ssor_sweep.launches += 1
     return y
 
 
+_ssor_sweep = ssor_sweep
 ssor_sweep.launches = 0   # applications (each the forward and backward kernel)
 
 

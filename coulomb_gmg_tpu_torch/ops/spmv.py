@@ -6,7 +6,8 @@ is atomic and its order of additions varies from run to run.  Here every
 product is a gather: ``matvec`` and ``matvec_T`` run the ELL kernel
 (ops/ell.py) on a sliced ELL of the matrix and one of its transpose, each
 built once on the host (``utils/native.py:csr_to_sliced``) and kept on the
-device with the matrix.  Replaces Trilinos Epetra SpMV, the
+device with the matrix: a span ``ell.host_build`` of the run, the values
+read back once (``device.py:read_back``).  Replaces Trilinos Epetra SpMV, the
 workhorse of the reference's CG and V-cycle (src/step-50.cc:938-1017).
 """
 
@@ -18,9 +19,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from coulomb_gmg_tpu_torch.device import upload
-from coulomb_gmg_tpu_torch.mesh.forest import to_host
+from coulomb_gmg_tpu_torch.device import read_back, upload
 from coulomb_gmg_tpu_torch.ops.ell import SlicedELL, ell_mv
+from coulomb_gmg_tpu_torch.utils.timer import span
 
 
 def transpose_pattern(indptr: np.ndarray, indices: np.ndarray, n_cols: int):
@@ -73,7 +74,7 @@ class CSR:
         """The values on the host, copied once (through pinned memory from
         a card: the device-assembled matrices' only read-back)."""
         if self._host is None:
-            self._host = to_host(self.data.detach())
+            self._host = read_back(self.data.detach())
         return self._host
 
     def ell(self, n_pad: Optional[int] = None,
@@ -81,21 +82,23 @@ class CSR:
         """(:class:`~coulomb_gmg_tpu_torch.ops.ell.Slices`, vals): the
         matrix (or its transpose) as a sliced ELL of ``n_pad`` rows on the
         data's device; ``n_pad`` (default: the row count) adds zero rows.
-        Built on the host once per (n_pad, dtype, transpose) and kept."""
+        Built on the host once per (n_pad, dtype, transpose) and kept, a
+        span ``ell.host_build``."""
         dtype = dtype or self.data.dtype
         n_out = self.n_cols if transpose else self.n_rows
         n_pad = n_out if n_pad is None else n_pad
         key = (n_pad, dtype, transpose)
         if key not in self._ells:
-            data = self.data_np()
-            indptr, indices = self.indptr, self.indices
-            if transpose:
-                indptr, indices, perm = transpose_pattern(indptr, indices,
-                                                          self.n_cols)
-                data = data[perm]
-            e = SlicedELL.from_csr(indptr, indices, data,
-                                   pad_rows_to=n_pad)
-            self._ells[key] = e.device(self.data.device, dtype)
+            with span("ell.host_build"):
+                data = self.data_np()
+                indptr, indices = self.indptr, self.indices
+                if transpose:
+                    indptr, indices, perm = transpose_pattern(
+                        indptr, indices, self.n_cols)
+                    data = data[perm]
+                e = SlicedELL.from_csr(indptr, indices, data,
+                                       pad_rows_to=n_pad)
+                self._ells[key] = e.device(self.data.device, dtype)
         return self._ells[key]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from coulomb_gmg_tpu_torch.device import upload
-from coulomb_gmg_tpu_torch.utils.timer import spanned
+from coulomb_gmg_tpu_torch.utils.timer import count, spanned
 from coulomb_gmg_tpu_torch.mesh.forest import Forest
 from coulomb_gmg_tpu_torch.mesh.dofs import DofInfo, LevelDofs
 from coulomb_gmg_tpu_torch.fem import card_assembly as card
@@ -137,7 +137,8 @@ class GMGPreconditioner:
     """One V-cycle of local-smoothing GMG, used as a CG preconditioner.
     ``copy_global`` / ``copy_level`` are numpy index arrays;
     ``coarse_iterations`` records the coarse CG's count of each V-cycle;
-    each coarse solve is a span ``solve.coarse`` of the run."""
+    each coarse solve is a span ``solve.coarse`` of the run and adds its
+    count to the run's counter ``coarse_cg_iterations``."""
 
     matrices: List[CSR]                 # A_l per level
     interfaces: List[Optional[CSR]]     # A_l^if (None at level 0)
@@ -166,6 +167,7 @@ class GMGPreconditioner:
         res = cg(self.matrices[0].matvec, d0, tol=tol,
                  maxiter=self.coarse_maxiter)
         self.coarse_iterations.append(res.iterations)
+        count("coarse_cg_iterations", res.iterations)
         return res.x
 
     def __call__(self, g: torch.Tensor) -> torch.Tensor:

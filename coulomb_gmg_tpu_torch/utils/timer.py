@@ -17,9 +17,10 @@ owns it, one run being the system's unit of request:
   the profiler's clock over the device's work; without a profiler no range
   is made;
 * **counters** (:func:`count`): ``uploads`` / ``upload_bytes`` (device.py:
-  upload), ``host_reads`` / ``host_read_ns`` (solver/cg.py), each added to
-  the innermost open span and to its enclosing stage (``"run"`` outside
-  every stage);
+  upload), ``readbacks`` / ``readback_bytes`` (device.py: read_back),
+  ``host_reads`` / ``host_read_ns`` (solver/cg.py), each added to the
+  innermost open span and to its enclosing stage (``"run"`` outside every
+  stage);
 * **the finished-run record** :data:`RUNS`: when a run ends its summary
   (seconds by span name, total and self; counters by stage and by span;
   the cycles' cell counts) is appended there, the last 64 runs kept, so
