@@ -241,7 +241,11 @@ STEP16_F32 = dict(cells=[4096, 5307, 7526, 10032, 17312],
                   cg=[6, 15, 15, 17, 17], slack=1)
 STEP16_JACOBI = dict(cells=[4096, 5307, 7526], cg=[13, 19, 28], slack=4)
 KERNELS = ("ell_spmv", "tile_density", "dense_density", "exact_gradient",
-           "segment_sum", "ssor_sweep", "list_density")
+           "segment_sum", "ssor_sweep", "list_density", "matrix_norms",
+           "distribute_rows")
+# the kernel source file (csrc/<file>.cu) of each of KERNELS
+SOURCE = dict(zip(KERNELS, KERNELS)) | {"matrix_norms": "solve_check",
+                                        "distribute_rows": "solve_check"}
 
 
 def phase_device():
@@ -262,10 +266,11 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from coulomb_gmg_tpu_torch import kernels
     t0 = time.time()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for f in [pool.submit(kernels.build, n) for n in KERNELS]:
+    files = sorted(set(SOURCE.values()))
+    with ThreadPoolExecutor(len(files)) as pool:
+        for f in [pool.submit(kernels.build, n) for n in files]:
             f.result()
-    for name in KERNELS:
+    for name in files:
         log = kernels.BUILD_LOG.get(name, {})
         ptxas = [ln.strip() for ln in log.get("ptxas", "").splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -281,10 +286,13 @@ def counters():
     from coulomb_gmg_tpu_torch.ops.tile_density import tile_density
     from coulomb_gmg_tpu_torch.fem.card_assembly import segment_sum
     from coulomb_gmg_tpu_torch.ops.smoothers import ssor_sweep
+    from coulomb_gmg_tpu_torch.solver.check import (distribute_rows,
+                                                    matrix_norms)
     return {"ell_spmv": ell_mv, "tile_density": tile_density,
             "dense_density": dense_density, "exact_gradient": exact_gradient,
             "segment_sum": segment_sum, "ssor_sweep": ssor_sweep,
-            "list_density": list_density}
+            "list_density": list_density, "matrix_norms": matrix_norms,
+            "distribute_rows": distribute_rows}
 
 
 def reset_counts():
@@ -988,6 +996,7 @@ def phase_host_f64():
     peak = torch.cuda.max_memory_allocated() / 2**30
     dens_row = list_densities(sim, "host f64")
     ssor_row = ssor_levels(ssor.values(), "host f64")
+    check_rows = [solve_checks(sim, "host f64 8k last cycle")]
     sys_ell = host_f64_system(sim)
     ell_csr_levels(sim.gmg, "host f64")
     cg = [r["cg_iterations"] for r in res]
@@ -1018,6 +1027,8 @@ def phase_host_f64():
             and launches["segment_sum"] > 0
             and launches["ssor_sweep"] == calls > 0
             and launches["list_density"] == len(res)
+            and launches["matrix_norms"] == len(res)
+            and launches["distribute_rows"] == len(res)
             and "smoother.ssor_host" not in spans):
         raise AssertionError(f"host f64: launch counts {launches}, float64 "
                              f"ELL {f64}, card SSOR applications {calls}, "
@@ -1033,7 +1044,109 @@ def phase_host_f64():
                              f"{sys_ell['bound_ms']:.4f}: not within 1.10x "
                              f"of torch.mv, 1.5x faster than padded and at "
                              f"60% of the bound")
-    return launches, ssor_row, dens_row
+    # the 1,000-atom float64 system (the benchmark's 1k cell), last cycle
+    sim1k = Simulation(production_scaling_config(5, dtype="float64"),
+                       atoms=nacl_lattice(5), device="cuda",
+                       pcout=Pcout(enabled=False))
+    sim1k.run()
+    check_rows.append(solve_checks(sim1k, "host f64 1k last cycle"))
+    del sim1k
+    return (launches, ssor_row, dens_row) + check_rows[0]
+
+
+def solve_checks(sim, tag):
+    """The Solve check (solver/check.py:card_check) on ``sim``'s last
+    system, with its solution as x: on the card the same bits on repeat;
+    the column and row sums of ``|a|`` and the distributed solution the
+    plain versions' bits on the CPU, the Frobenius and vector norms within
+    1e-13 relative, the residual within 1e-13 ||b||; each kernel timed
+    with its bound, the whole check's wall time with its one read, beside
+    the host numpy check that it replaced (the matrix norms, vector norms
+    and ``fem/constraints.py:distribute`` on the host values).  Returns
+    the rows of ``matrix_norms`` and ``distribute_rows``."""
+    import torch
+    from coulomb_gmg_tpu_torch import roofline
+    from coulomb_gmg_tpu_torch.fem.constraints import distribute
+    from coulomb_gmg_tpu_torch.ops.ell import Slices
+    from coulomb_gmg_tpu_torch.solver import check
+    A, con, dev = sim.A, sim.constraints, sim.A.data.device
+    sl, vals = system = A.ell(dtype=torch.float64)
+    b = torch.from_numpy(np.asarray(sim.rhs, np.float64)).to(dev)
+    x = torch.from_numpy(np.asarray(sim.solution, np.float64)).to(dev)
+    got = check.card_check(b, x, con, system)
+    same = all(np.array_equal(check.card_check(b, x, con, system).solution,
+                              got.solution) for _ in range(3))
+    cpu = (Slices(sl.off.cpu(), sl.cols.cpu(), sl.n_rows, sl.width),
+           vals.cpu())
+    t0 = time.perf_counter()
+    plain = check.card_check(b.cpu(), x.cpu(), con, cpu)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    vec = max(abs(got.norms[k] - plain.norms[k]) / abs(plain.norms[k])
+              for k in ("l1_rhs", "l2_rhs", "linf_rhs", "l1_sol", "l2_sol",
+                        "linf_sol", "fro_mat"))
+    mat_err = max(abs(got.norms[k] - plain.norms[k]) for k in check._MAT)
+    sol_err = float(np.abs(got.solution - plain.solution).max())
+    if not (same and all(got.norms[k] == plain.norms[k]
+                         for k in ("l1_mat", "linf_mat"))
+            and sol_err == 0.0 and vec <= 1e-13
+            and abs(got.residual - plain.residual)
+            <= 1e-13 * got.norms["l2_rhs"]):
+        raise AssertionError(f"solve_check {tag}: card {got.norms}, "
+                             f"residual {got.residual}; plain {plain.norms}, "
+                             f"residual {plain.residual}; same bits on "
+                             f"repeat {same}")
+    out = torch.empty(4, dtype=torch.float64, device=dev)
+    ms = median_ms(lambda: check.matrix_norms(sl, vals, out))
+    ints, floats = check._constraint_operands(con, dev)
+    sol = x.clone()
+    n_con, con_nnz = len(con.rows), len(con.cols)
+    dist_ms = median_ms(lambda: check.distribute_rows(ints, floats, n_con, x,
+                                                      sol))
+    t0 = time.perf_counter()
+    check.matrix_norms(*cpu, torch.empty(4, dtype=torch.float64))
+    mat_plain_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    check.distribute_rows(ints.cpu(), floats.cpu(), n_con, x.cpu(),
+                          x.cpu().clone())
+    dist_plain_ms = 1e3 * (time.perf_counter() - t0)
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        check.card_check(b, x, con, system)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    hx, hb, data = sim.solution, np.asarray(sim.rhs, np.float64), A.data_np()
+    hosts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        absd = np.abs(data).astype(np.float64)
+        np.bincount(A.indices, weights=absd, minlength=A.n_cols).max()
+        np.add.reduceat(absd, A.indptr[:-1]).max()
+        np.sqrt((absd ** 2).sum())
+        for v in (hb, hx):
+            np.abs(v).sum(), np.linalg.norm(v), np.abs(v).max()
+        distribute(con, hx)
+        hosts.append(1e3 * (time.perf_counter() - t0))
+    bn = roofline.matrix_norms(sl, A.nnz)
+    bd = roofline.distribute_rows(n_con, con_nnz)
+    print(f"[solve_check {tag}] {A.n_rows} rows, {A.nnz} nonzeros, "
+          f"{n_con} constrained rows ({con_nnz} entries): matrix_norms "
+          f"{ms:.4f} ms, {bound_text(bn, ms)}; distribute_rows {dist_ms:.4f} "
+          f"ms, {bound_text(bd, dist_ms)}; the whole check "
+          f"{np.median(walls):.3f} ms wall (median of 10, its one read "
+          f"included), the host numpy check it replaced "
+          f"{np.median(hosts):.1f} ms (median of 3), the plain version on "
+          f"the CPU {plain_ms:.1f} ms; same bits on repeat, the plain "
+          f"version's column and row sums and solution bits, Frobenius and "
+          f"vector norms within {vec:.1e}; l1/linf/fro "
+          f"{got.norms['l1_mat']:.10e} "
+          f"{got.norms['linf_mat']:.10e} {got.norms['fro_mat']:.10e}",
+          flush=True)
+    return (dict(max_abs_err=mat_err, ms=ms, plain_ms=mat_plain_ms,
+                 bound_ms=bn["bound_ms"], bound_by=bn["bound_by"],
+                 library_ms=None),
+            dict(max_abs_err=sol_err, ms=dist_ms, plain_ms=dist_plain_ms,
+                 bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                 library_ms=None))
 
 
 def list_densities(sim, tag):
@@ -2249,7 +2362,8 @@ def main():
     main4, traj8k = timed("main path", phase_main_path)
     timed("topology", lambda: phase_topology(traj8k))
     main5 = timed("bruteforce fe", phase_bruteforce_fe)
-    main6, timing["ssor_sweep"], timing["list_density"] = timed(
+    (main6, timing["ssor_sweep"], timing["list_density"],
+     timing["matrix_norms"], timing["distribute_rows"]) = timed(
         "host f64", phase_host_f64)
     main7 = timed("routes", phase_routes)
     main8 = timed("device f64", phase_device_f64)
@@ -2276,11 +2390,15 @@ def main():
                 "ssor_sweep": "no kernel: coulomb_gmg_tpu/ops/smoothers.py:"
                               "make_ssor_host (host scipy)",
                 "list_density": "no kernel: coulomb_gmg_tpu/ops/density.py:"
-                                "compute_density (jnp list branch)"}
+                                "compute_density (jnp list branch)",
+                "matrix_norms": "no kernel: coulomb_gmg_tpu/driver.py "
+                                "(the solve's host numpy matrix norms)",
+                "distribute_rows": "no kernel: coulomb_gmg_tpu/fem/"
+                                   "constraints.py:distribute (host loop)"}
     # launches: the sum over the main-path runs (phases 4 to 14)
     rec = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"coulomb_gmg_tpu_torch/csrc/{name}.cu",
+         "source": f"coulomb_gmg_tpu_torch/csrc/{SOURCE[name]}.cu",
          "replaces": replaces[name],
          "launches": sum(m[name] for m in (main4, main5, main6, main7,
                                            main8, main9, main10, main11,
@@ -2288,7 +2406,7 @@ def main():
          **timing[name]}
         for name in ("tile_density", "ell_spmv", "dense_density",
                      "exact_gradient", "segment_sum", "ssor_sweep",
-                     "list_density")]}
+                     "list_density", "matrix_norms", "distribute_rows")]}
     print(f"[smoke] total {time.time() - t0:.1f} s; phases {seconds}",
           flush=True)
     print(smi)

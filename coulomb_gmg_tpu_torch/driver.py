@@ -74,7 +74,7 @@ from coulomb_gmg_tpu_torch.config import Config
 from coulomb_gmg_tpu_torch.device import resolve, upload
 from coulomb_gmg_tpu_torch.fem import card_assembly
 from coulomb_gmg_tpu_torch.fem.constraints import (build_constraints,
-                                                   distribute, set_zero)
+                                                   set_zero)
 from coulomb_gmg_tpu_torch.fem.integrals import rhs_cells
 from coulomb_gmg_tpu_torch.io.gnuplot import grid_output_debug
 from coulomb_gmg_tpu_torch.io.lammps import AtomData, read_lammps_file
@@ -89,7 +89,6 @@ from coulomb_gmg_tpu_torch.utils.timer import TimerOutput, span, spanned
 from coulomb_gmg_tpu_torch.models import problems as P
 from coulomb_gmg_tpu_torch.ops.density import (
     atom_masks, cell_quad_points, compute_density, density_bruteforce)
-from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 from coulomb_gmg_tpu_torch.ops.neighbors import AtomLists, locality_lists
 from coulomb_gmg_tpu_torch.ops.smoothers import make_jacobi
 from coulomb_gmg_tpu_torch.ops.spmv import CSR
@@ -101,7 +100,8 @@ from coulomb_gmg_tpu_torch.parallel.spmd import (SpmdContext,
                                                  electrostatic_energy_spmd)
 from coulomb_gmg_tpu_torch.postprocess.energy import (electrostatic_energy,
                                                       energy_norm_error)
-from coulomb_gmg_tpu_torch.solver.cg import cg, host_array, host_float
+from coulomb_gmg_tpu_torch.solver.cg import cg, host_float
+from coulomb_gmg_tpu_torch.solver.check import card_check
 from coulomb_gmg_tpu_torch.solver.fused import stepped_cg
 from coulomb_gmg_tpu_torch.solver.device_gmg import (StencilGMG,
                                                      solve_refined_device)
@@ -424,34 +424,36 @@ class Simulation:
 
     # -------------------------------------------------------------- solve
 
-    def _log_solve(self, b, x, k, res0, resf, mat=None):
+    def _log_solve(self, b, x, k, res0, resf, system=None, defect=None):
+        """The solve's check (solver/check.py:card_check, where ``x`` lies;
+        numpy ``b`` and ``x`` go to the device first) and its log lines:
+        sets ``norms``, ``solution`` (host float64, its constrained rows
+        distributed), ``cg_iterations`` and ``cg_start``.  ``system`` (the
+        float64 sliced ELL of the assembled matrix) or ``defect`` gives the
+        true residual, returned; else None."""
         pc = self.pcout
-        self.norms = {
-            "l1_rhs": float(np.abs(b).sum()),
-            "l2_rhs": float(np.linalg.norm(b)),
-            "linf_rhs": float(np.abs(b).max()),
-            "l1_mat": None, "linf_mat": None, "fro_mat": None,
-            "l1_sol": float(np.abs(x).sum()),
-            "l2_sol": float(np.linalg.norm(x)),
-            "linf_sol": float(np.abs(x).max()),
-        }
+        put = lambda v: (v if isinstance(v, torch.Tensor) else
+                         upload(np.asarray(v, np.float64), self.device))
+        chk = card_check(put(b), put(x), self.constraints, system=system,
+                         defect=defect)
+        self.norms = chk.norms
         pc("   L1 rhs norm " + sci10(self.norms["l1_rhs"]))
         pc("   L2 rhs norm " + sci10(self.norms["l2_rhs"]))
         pc("   LInfinity rhs norm " + sci10(self.norms["linf_rhs"]))
-        if mat is not None:
-            self.norms.update(mat)
-            pc("   L1 Matrix norm " + sci10(mat["l1_mat"]))
-            pc("   LInfinity Matrix norm " + sci10(mat["linf_mat"]))
-            pc("   Frobenius Matrix norm " + sci10(mat["fro_mat"]))
+        if system is not None:
+            pc("   L1 Matrix norm " + sci10(self.norms["l1_mat"]))
+            pc("   LInfinity Matrix norm " + sci10(self.norms["linf_mat"]))
+            pc("   Frobenius Matrix norm " + sci10(self.norms["fro_mat"]))
         pc("   Starting value " + fix10(res0))
         pc(f"   CG converged in {k} iterations.")
         pc("   Convergence value " + sci10(resf))
         pc("   L1 solution norm " + sci10(self.norms["l1_sol"]))
         pc("   L2 solution norm " + sci10(self.norms["l2_sol"]))
         pc("   LInfinity solution norm " + sci10(self.norms["linf_sol"]))
-        self.solution = distribute(self.constraints, x)
+        self.solution = chk.solution
         self.cg_iterations = int(k)
         self.cg_start = float(res0)
+        return chk.residual
 
     def solve(self):
         with self._stage("Solve"):
@@ -459,23 +461,14 @@ class Simulation:
                 self._solve_device_ops()
                 return
             with span("solve.cg"):
-                x, k, res0, resf = self._solve_assembled()
+                b = upload(np.asarray(self.rhs, np.float64), self.device)
+                x, k, res0, resf = self._solve_assembled(b)
             self.cg_passes = None
             with span("solve.check"):
                 # the true residual of the returned solution, float64
-                A64 = self.A.ell(dtype=torch.float64)
-                xd = upload(x, self.device)
-                bd = upload(np.asarray(self.rhs, np.float64), self.device)
-                self.residual = host_float(torch.linalg.vector_norm(
-                    bd - ell_mv(*A64, xd)))
-                absd = np.abs(self.A.data_np()).astype(np.float64)
-                colsum = np.bincount(self.A.indices, weights=absd,
-                                     minlength=self.A.n_cols)
-                mat = {"l1_mat": float(colsum.max()),
-                       "linf_mat": float(np.add.reduceat(
-                           absd, self.A.indptr[:-1]).max()),
-                       "fro_mat": float(np.sqrt((absd ** 2).sum()))}
-                self._log_solve(np.asarray(self.rhs), x, k, res0, resf, mat)
+                self.residual = self._log_solve(
+                    b, x, k, res0, resf,
+                    system=self.A.ell(dtype=torch.float64))
 
     def _solve_device_ops(self):
         """The device-operator solve (the JAX driver's solve,
@@ -483,10 +476,9 @@ class Simulation:
         for float32 below the float32 CG floor (``cg_rtol < 5e-7``), else
         one GMG-CG at ``cg_rtol``; the true float64 residual either way."""
         cfg, g = self.cfg, self.gmg
-        with span("solve.check"):
-            b = host_array(self.rhs[: g.n])
         x0 = (self.solution if self.solution is not None
               and len(self.solution) == g.n else None)
+        defect = None
         if self.dtype == torch.float32 and cfg.cg_rtol < 5e-7:
             x, k, res0, resf, self.cg_passes = solve_refined_device(
                 g, x0, rtol=cfg.cg_rtol, maxiter=cfg.cg_max_iters)
@@ -503,17 +495,20 @@ class Simulation:
                     rhs_norm=host_float(torch.linalg.vector_norm(b64)))
             with span("solve.check"):
                 x64 = xw.to(torch.float64)
-                self.residual = host_float(
-                    torch.linalg.vector_norm(g.defect64(x64)))
-                x = host_array(x64[: g.n])
+                defect = g.defect64(x64)
+                x = x64[: g.n]
             self.cg_passes = [k]
         with span("solve.check"):
-            self._log_solve(b, x, k, res0, resf)
+            residual = self._log_solve(self.rhs[: g.n], x, k, res0, resf,
+                                       defect=defect)
+        if residual is not None:
+            self.residual = residual
 
-    def _solve_assembled(self):
+    def _solve_assembled(self, b):
         """The routes of the host-assembled system (the JAX driver's solve,
-        src/step-50.cc:938-1017).  Returns (x float64 numpy, iterations,
-        |r0|, |r|)."""
+        src/step-50.cc:938-1017), ``b`` the float64 RHS on the device.
+        Returns (x, iterations, |r0|, |r|): x a tensor on the device where
+        the route leaves one there, else float64 numpy."""
         cfg = self.cfg
         rhs = np.asarray(self.rhs)
         x0 = (self.solution if self.solution is not None
@@ -534,9 +529,8 @@ class Simulation:
                     return solve_refined(g, self.A, rhs, x0,
                                          rtol=cfg.cg_rtol,
                                          maxiter=cfg.cg_max_iters)
-                x, k, res0, resf = g.solve(rhs, x0, rtol=cfg.cg_rtol,
-                                           maxiter=cfg.cg_max_iters)
-                return x.cpu().numpy().astype(np.float64), k, res0, resf
+                return g.solve(rhs, x0, rtol=cfg.cg_rtol,
+                               maxiter=cfg.cg_max_iters)
             finally:
                 g.release()
         if self.use_tpu_cg:
@@ -553,12 +547,11 @@ class Simulation:
         else:
             solve = stepped_cg if cfg.solve_fused else cg
             precond = make_jacobi(self.A, cfg.jacobi_damping)
-        res = solve(self.A.matvec, put(rhs),
+        res = solve(self.A.matvec, b.to(self.dtype),
                     x0=put(x0) if x0 is not None else None, precond=precond,
                     tol=cfg.cg_rtol * float(np.linalg.norm(rhs)),
                     maxiter=cfg.cg_max_iters)
-        return (host_array(res.x).astype(np.float64), res.iterations,
-                res.initial_residual, res.final_residual)
+        return res.x, res.iterations, res.initial_residual, res.final_residual
 
     def _solve_spmd(self, rhs, x0):
         """The SPMD solve (the JAX driver's driver.py:543-584): ShardedGMG

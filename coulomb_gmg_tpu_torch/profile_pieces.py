@@ -170,7 +170,7 @@ def device_solves(sim, device) -> tuple:
         recs.append({"solve": name, "s": s, "cg": k, "passes": passes,
                      "residual_rel": res / res0, "reads": to_host.reads
                      - reads})
-        xs.append(x)
+        xs.append(x.cpu().numpy())
     if not all(np.array_equal(xs[0], x) for x in xs[1:]) or len(
             {(r["cg"], tuple(r["passes"])) for r in recs}) != 1:
         raise AssertionError("profile_pieces: the eager and stepped solves "

@@ -11,9 +11,10 @@ atom) pairs of the brute-force density whose float32 ``exp`` is not zero,
 the nonzero slots of the ELL operator, every (point, atom) pair of the
 exact gradient, near ones at the full formula's cost, every entry of
 the CSR assembly's segment sum, every product of the SSOR sweep and
-every (cell, atom) entry of the list density (a float64 addition or FMA
-counts 2 operations per flop: the card's float64 rate is half its float32
-rate).  The SSOR sweep is bound by neither: its
+every (cell, atom) entry of the list density, every nonzero of the
+Solve check's matrix norms and every constraint entry it distributes (a
+float64 addition or FMA counts 2 operations per flop: the card's float64
+rate is half its float32 rate).  The SSOR sweep is bound by neither: its
 rows wait on each other, and :func:`chain_depths` counts the steps.
 """
 
@@ -161,3 +162,24 @@ def ssor_sweep(indptr: torch.Tensor, indices: torch.Tensor,
                     + n * vals.element_size()),
             "depths": chain_depths(indptr.cpu().numpy(),
                                    indices.cpu().numpy())}
+
+
+def matrix_norms(sl, nnz: int) -> dict:
+    """One launch of solver/check.py:matrix_norms: an absolute value and
+    two float64 additions and a product a nonzero (2 operations each);
+    each nonzero's int32 column and float64 value read once (what the
+    norms need, not the kernel's mirror search), the slices' offsets, and
+    the four results written."""
+    return {**bound(2 * 4 * nnz, 12 * nnz + nbytes(sl.off) + 4 * 8),
+            "terms": nnz}
+
+
+def distribute_rows(n_con: int, con_nnz: int) -> dict:
+    """One launch of solver/check.py:distribute_rows: a float64 FMA a
+    constraint entry, one addition a row (2 operations per flop); the
+    constraint CSR read once (int32 rows, offsets and columns, float64
+    weights and inhomogeneities), one x gathered an entry, a row written."""
+    return {**bound(2 * (2 * con_nnz + n_con),
+                    4 * (2 * n_con + 1 + con_nnz) + 8 * con_nnz
+                    + 8 * n_con + 8 * con_nnz + 8 * n_con),
+            "terms": con_nnz}

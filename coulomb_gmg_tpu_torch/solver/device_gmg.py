@@ -34,7 +34,7 @@ from coulomb_gmg_tpu_torch.ops.ell import ell_mv
 from coulomb_gmg_tpu_torch.ops.stencil import (
     stencil_table, level_topology, topology_signature, build_level_ops,
     build_prolongation_ops, power_lmax_device)
-from coulomb_gmg_tpu_torch.solver.cg import host_array, host_float
+from coulomb_gmg_tpu_torch.solver.cg import host_float
 from coulomb_gmg_tpu_torch.solver.fused import SteppedGMG
 from coulomb_gmg_tpu_torch.solver.gmg import (
     pad_n, round_up, copy_map_tables, dst_tables, cellwise_mv, gmg_cg)
@@ -370,10 +370,10 @@ def solve_refined_device(gmg: StencilGMG, x0: Optional[np.ndarray] = None,
     """Mixed-precision iterative refinement against the float64 rhs
     ``gmg.b64``: float64 defect on the card, working-precision GMG-CG
     corrections, float64 accumulation of the solution.  Returns
-    (x (n,) float64 numpy, total CG iterations, |r0|, |r_final|, CG
+    (x (n,) float64 on the card, total CG iterations, |r0|, |r_final|, CG
     iterations per pass); the norms are those of the TRUE float64
-    defect.  Each pass is a span ``solve.cg`` of the run, each defect and
-    the solution's copy to the host a span ``solve.check``."""
+    defect.  Each pass is a span ``solve.cg`` of the run, each defect a
+    span ``solve.check``."""
     b = gmg.b64
     with span("solve.check"):
         tol = rtol * host_float(torch.linalg.vector_norm(b))
@@ -397,6 +397,4 @@ def solve_refined_device(gmg: StencilGMG, x0: Optional[np.ndarray] = None,
                                    maxiter=maxiter, rhs_norm=rnorm)
             x = x + d.to(torch.float64)
         passes.append(k)
-    with span("solve.check"):
-        x = host_array(x[: gmg.n])
-    return x, sum(passes), res0, rnorm, passes
+    return x[: gmg.n], sum(passes), res0, rnorm, passes

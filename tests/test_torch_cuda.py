@@ -597,6 +597,79 @@ def test_card_ssor_refuses_what_it_does_not_take(card_ssors):
         s(r[:n].float())
 
 
+@pytest.fixture(scope="module", params=[2, 5], ids=["64", "1000"])
+def card_checks(request):
+    """The inputs of every Solve check of the float64 host-assembled run of
+    8 n^3 atoms on the card (5 cycles): (b, x, constraints, system)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from coulomb_gmg_tpu_torch import driver
+    got, real = [], driver.card_check
+
+    def record(b, x, con, system=None, defect=None):
+        got.append((b.clone(), x.clone(), con, system))
+        return real(b, x, con, system=system, defect=defect)
+    cfg = production_scaling_config(request.param, dtype="float64",
+                                    device_operators="off")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(driver, "card_check", record)
+        Simulation(cfg, atoms=nacl_lattice(request.param), device="cuda",
+                   pcout=Pcout(enabled=False)).run()
+    return got
+
+
+def test_solve_check_kernels_are_their_plain_versions(card_checks):
+    """Each cycle's check on the card against the plain versions on the
+    CPU: the column and row sums of |a| and the distributed solution to
+    the bit, the Frobenius and vector norms within 1e-13 relative (the
+    card and the CPU sum in different orders), the residual within 1e-13
+    ||b||
+    (the ELL kernel's FMA chains against the plain product); the same
+    bits on repeat; two launches of each kernel a check."""
+    from coulomb_gmg_tpu_torch.ops.ell import Slices
+    from coulomb_gmg_tpu_torch.solver import check
+    assert len(card_checks) == 5
+    for b, x, con, (sl, vals) in card_checks:
+        assert x.is_cuda and vals.dtype == torch.float64
+        before = (check.matrix_norms.launches, check.distribute_rows.launches)
+        got = check.card_check(b, x, con, (sl, vals))
+        assert (check.matrix_norms.launches,
+                check.distribute_rows.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+        for _ in range(3):
+            again = check.card_check(b, x, con, (sl, vals))
+            assert again.residual == got.residual
+            assert again.norms == got.norms
+            assert np.array_equal(again.solution, got.solution)
+        cpu = (Slices(sl.off.cpu(), sl.cols.cpu(), sl.n_rows, sl.width),
+               vals.cpu())
+        plain = check.card_check(b.cpu(), x.cpu(), con, cpu)
+        for k in ("l1_mat", "linf_mat"):
+            assert got.norms[k] == plain.norms[k], k
+        for k in ("fro_mat", "l1_rhs", "l2_rhs", "linf_rhs", "l1_sol",
+                  "l2_sol", "linf_sol"):
+            assert abs(got.norms[k] - plain.norms[k]) <= 1e-13 * abs(
+                plain.norms[k]), k
+        assert np.array_equal(got.solution, plain.solution)
+        assert abs(got.residual - plain.residual) <= 1e-13 * \
+            got.norms["l2_rhs"]
+        assert got.residual <= 1.01e-8 * got.norms["l2_rhs"]
+
+
+def test_solve_check_refuses_what_it_does_not_take(card_checks):
+    from coulomb_gmg_tpu_torch.solver import check
+    b, x, con, (sl, vals) = card_checks[-1]
+    out = torch.zeros(8, dtype=torch.float64, device=x.device)
+    with pytest.raises(TypeError, match="float64"):
+        check.matrix_norms(sl, vals.float(), out)
+    with pytest.raises(ValueError, match="contiguous"):
+        check.matrix_norms(sl, vals, out[::2])
+    with pytest.raises(ValueError, match="one card"):
+        check.matrix_norms(sl, vals, out.cpu())
+    with pytest.raises(ValueError, match="card_check"):
+        check.card_check(b.cpu(), x, con, (sl, vals))
+
+
 def test_sharded_tile_density_on_card(card):
     """Three shards of the tile kernel on one card: the same bits as one
     launch over the whole plan, one launch per shard."""
